@@ -1,10 +1,11 @@
-"""pulseportraiture_tpu: TPU-native wideband pulsar timing framework.
+"""pulseportraiture_tpu: accelerator-native wideband pulsar timing.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 PulsePortraiture (Pennucci, Demorest, & Ransom 2014; Pennucci 2019):
 wideband TOA/DM measurement via an extended-FFTFIT likelihood, Gaussian and
 PCA/B-spline portrait modeling, alignment/averaging, channel zapping, and
-simulation — redesigned for batched, sharded execution on TPU meshes.
+simulation — redesigned for batched, sharded execution on GPUs and
+GPU meshes.
 
 Layers (see SURVEY.md):
   ops/       L1 Fourier-domain portrait algebra (rotation, scattering, noise)

@@ -31,7 +31,7 @@ an alias:
   COF  Center Of Flux: circular centroid (first-harmonic phase) of data
        minus model.
 
-All estimators run split-real (no complex arrays: TPU-safe) over
+All estimators run split-real (real arithmetic throughout) over
 (nchan, nbin) stacks in one device program.
 """
 
@@ -106,7 +106,9 @@ def _ccf_max(cr, ci, Ns=256, newton_iter=8):
 
     grid = jnp.linspace(-0.5, 0.5, Ns).astype(cr.dtype)
     ang = TWO_PI * grid[:, None] * k
-    vals = jnp.cos(ang) @ cr.T - jnp.sin(ang) @ ci.T     # (Ns, C)
+    hi = jax.lax.Precision.HIGHEST
+    vals = jnp.matmul(jnp.cos(ang), cr.T, precision=hi) - \
+        jnp.matmul(jnp.sin(ang), ci.T, precision=hi)      # (Ns, C)
     phi = grid[jnp.argmax(vals, axis=0)]                 # (C,)
 
     def newton(_, ph):
@@ -156,8 +158,9 @@ def shift_FDM(data, model, noise=None, npts=257, width_sigmas=8.0):
     offs = jnp.linspace(-1.0, 1.0, npts).astype(cr.dtype)
     phis = phi[:, None] + half[:, None] * offs[None, :]      # (C, npts)
     ang = TWO_PI * phis[..., None] * k                       # (C, npts, K)
-    C = jnp.einsum("cnk,ck->cn", jnp.cos(ang), cr) - \
-        jnp.einsum("cnk,ck->cn", jnp.sin(ang), ci)
+    hi = jax.lax.Precision.HIGHEST
+    C = jnp.einsum("cnk,ck->cn", jnp.cos(ang), cr, precision=hi) - \
+        jnp.einsum("cnk,ck->cn", jnp.sin(ang), ci, precision=hi)
     C = C * w2[:, None]
     logw = (C ** 2 - (cmax * w2)[:, None] ** 2) / (2.0 * p[:, None])
     w = jnp.exp(jnp.clip(logw, -60.0, 0.0))

@@ -21,6 +21,12 @@ import jax
 import jax.numpy as jnp
 
 
+def _dot(a, b):
+    """Full-f32 dot for the <=5-wide Newton algebra (the GPU's default
+    f32 dot precision is TF32)."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 # Return-code strings in the style of the reference's RCSTRINGS table
 # (pplib.py:111-119, scipy TNC codes); our optimizer's statuses map to:
 RCSTRINGS = {
@@ -55,7 +61,7 @@ def _tr_solve(g, H, radius):
     g = g / s
     H = H / s
     lam, V = jnp.linalg.eigh(H)
-    gt = V.T @ g
+    gt = _dot(V.T, g)
     lam_min = lam[0]
     eps = jnp.asarray(10.0, g.dtype) * jnp.finfo(g.dtype).eps
 
@@ -80,11 +86,11 @@ def _tr_solve(g, H, radius):
         return jnp.maximum(mu_new, jnp.maximum(0.0, -lam_min) + eps)
 
     mu = jax.lax.fori_loop(0, 25, secular_body, mu0 + 1.0)
-    p_boundary = -(V @ p_of(mu))
+    p_boundary = -_dot(V, p_of(mu))
     # rescale exactly onto the boundary to protect against slow secular conv.
     pb_norm = jnp.sqrt(jnp.sum(p_boundary ** 2) + eps * eps)
     p_boundary = p_boundary * jnp.minimum(1.0, radius / pb_norm)
-    p_interior = -(V @ p_of(0.0))
+    p_interior = -_dot(V, p_of(0.0))
     p = jnp.where(interior_ok, p_interior, p_boundary)
     hit_boundary = ~interior_ok
     return p, hit_boundary
@@ -151,8 +157,8 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         accepted (same g, H, radius -> same subproblem solution), so
         this saves one full pass over the spectra per batch — the
         vmapped while_loop runs max-over-batch iterations and the
-        final iteration is almost always exactly this sub-floor step
-        (PERF.md round 5).  Only f/g/H/aux stay one sub-floor step
+        final iteration is almost always exactly this sub-floor step.
+        Only f/g/H/aux stay one sub-floor step
         stale (pred <= 8 eps |f|, below what f32 can resolve in f).
 
         Because the step is NOT evaluated, it must stay inside the
@@ -166,7 +172,7 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         p, _ = _tr_solve(g, H, radius)
         if mask is not None:
             p = p * mask
-        pred = -(g @ p + 0.5 * p @ H @ p)
+        pred = -(_dot(g, p) + 0.5 * _dot(p, _dot(H, p)))
         below = (pred >= 0.0) & \
             (pred <= 8.0 * jnp.finfo(dtype).eps * jnp.abs(f)) & \
             (jnp.sqrt(jnp.sum(p ** 2)) <= step_scale)
@@ -191,7 +197,7 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         else:
             f_new, g_new, H_new = fgh(x_new)
             aux_new = None
-        pred = -(st.g @ p + 0.5 * p @ st.H @ p)
+        pred = -(_dot(st.g, p) + 0.5 * _dot(p, _dot(st.H, p)))
         actual = st.f - f_new
         rho = actual / jnp.where(pred > 0.0, pred, 1e-300)
         # when the predicted decrease is below the floating-point

@@ -28,8 +28,8 @@ evenly spaced odd-nchan grids, where mean(freqs) IS the center channel).
 
 Polynomial branches solve their root pick entirely on device with the
 scaled-Horner grid + masked-bisection solver at the bottom of this file
-(nonsymmetric eigensolves, np.roots, and pure_callback are ALL
-unavailable on the TPU backend), so GM fits batch under vmap/jit.
+(no nonsymmetric eigensolve, np.roots or host callback), so GM fits
+batch under vmap/jit.
 Limitations vs the reference's np.roots (documented in PARITY.md): only
 roots bracketed by a sign change on the 1e-3..1e3 x target log grid are
 found — even-multiplicity (double) roots and roots outside that window
@@ -232,9 +232,8 @@ _ROOT_BISECT = 60     # bisection refinements per bracketed root
 
 def _nearest_positive_real_root(coeffs, target, square=False):
     """Positive real root of the polynomial nearest the target frequency,
-    entirely on device (jit/vmap-safe; no host callbacks — the TPU
-    backend supports neither nonsymmetric eigensolvers nor
-    pure_callback).
+    entirely on device (jit/vmap-safe; no host callbacks and no
+    nonsymmetric eigensolver).
 
     The polynomial (descending coefficients, variable v; v = nu^2 when
     square=True) is rescaled to v' = v/t and its coefficients normalized,

@@ -37,7 +37,7 @@ class PhaseShiftResult(NamedTuple):
 
 def _cross_spectrum(data, model, noise=None, f0_fact=F0_FACT):
     """Split-real cross spectrum (cr, ci), data power d0, model power p0,
-    and Fourier noise err — no complex arrays (TPU-safe)."""
+    and Fourier noise err, in real arithmetic."""
     from pulseportraiture_tpu.ops.fourier import rfft_ri
 
     data = jnp.asarray(data)
@@ -91,7 +91,9 @@ def _fit_phase_shift_core(cr, ci, d0, p0, err, lo, hi, Ns=100,
     # brute grid (matches opt.brute's inclusive linspace, pplib.py:2085)
     grid = jnp.linspace(lo, hi, Ns)
     ang = TWO_PI * grid[:, None] * k
-    vals = -(jnp.cos(ang) @ cr - jnp.sin(ang) @ ci) * w2
+    hi = jax.lax.Precision.HIGHEST
+    vals = -(jnp.matmul(jnp.cos(ang), cr, precision=hi) -
+             jnp.matmul(jnp.sin(ang), ci, precision=hi)) * w2
     phase = grid[jnp.argmin(vals)]
 
     # Newton polish with analytic derivatives (guarded: step only if convex)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from pulseportraiture_tpu.ops.transform import phase_shifts, phase_shifts_deriv
@@ -44,35 +45,13 @@ TWO_PI = float(2.0 * _np.pi)
 LN10 = float(_np.log(10.0))
 
 
-def _use_pallas_moments(use_pallas=None, kind="phase"):
-    """Use the fused Pallas moments kernel? Kind-aware default from
-    on-chip measurement (PERF.md round-3 kernel self-check + B32
-    component timings): the 9-accumulator *scattering* kernel beats XLA
-    (~7%, one fused pass vs many), so it defaults ON on TPU; the
-    3-moment *phase* kernel lost its edge once seed_phase cut mean
-    Newton iterations below 2 (XLA 138 GB/s vs Pallas CT 88 GB/s at
-    B=32), so it defaults OFF.  PP_PALLAS=0/1 forces both kinds
-    (decided at trace time).  use_pallas=False forces the XLA path —
-    required under GSPMD sharding, where pallas_call cannot be
-    partitioned."""
-    if use_pallas is not None:
-        return bool(use_pallas)
-    import os
-
-    import jax
-    env = os.environ.get("PP_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "")
-    return jax.default_backend() == "tpu" and kind == "scatter"
-
-
 class FitSetup(NamedTuple):
     """Per-fit constants (precomputed once; pytree, vmappable)."""
 
     Gr: jnp.ndarray     # (nchan, nharm) real: Re[dFT * conj(mFT)]
     Gi: jnp.ndarray     # (nchan, nharm) real: Im[dFT * conj(mFT)]
-                        # (split storage: no complex arrays on the TPU
-                        # hot path — friendlier layouts, same math)
+                        # (split real storage: the Newton loop's
+                        # reductions stay in real arithmetic)
     M2: jnp.ndarray     # (nchan, nharm) real: |mFT|**2
     w: jnp.ndarray      # (nchan,) real: 1/errs_FT**2, 0 for dead channels
     freqs: jnp.ndarray  # (nchan,) [MHz]
@@ -96,76 +75,70 @@ class FitSetup(NamedTuple):
                         # chi2 for ppzap without re-reading the data
 
 
-def model_ft(model_port, f0_fact=F0_FACT, fft_matmul=False,
-             dft_precision=None):
+def model_ft(model_port, f0_fact=F0_FACT):
     """Precompute the model rFFT as a split (mr, mi) pair for make_setup.
 
     Production batches share one model portrait across every subint of an
     archive; computing its transform once (outside the per-item vmap)
-    removes B-1 redundant MXU DFTs and materializes M2 once instead of B
-    times."""
-    model_port = jnp.asarray(model_port)
-    if fft_matmul:
-        from pulseportraiture_tpu.ops.fourier import rfft_matmul_ri
-        mr, mi = rfft_matmul_ri(model_port, precision=dft_precision)
-    else:
-        mFT = jnp.fft.rfft(model_port, axis=-1)
-        mr, mi = mFT.real, mFT.imag
+    removes B-1 redundant transforms and materializes M2 once instead of
+    B times."""
+    mFT = jnp.fft.rfft(jnp.asarray(model_port), axis=-1)
+    mr, mi = mFT.real, mFT.imag
     if not f0_fact:
         mr = mr.at[..., 0].set(0.0)
         mi = mi.at[..., 0].set(0.0)
     return mr, mi
 
 
+def cross_spectrum(data_port, mr, mi, f0_fact=F0_FACT):
+    """(Gr, Gi, sd): split-real G = rfft(data) * conj(m) along the last
+    axis, and the per-channel data power sum_k |rfft(data)|**2.
+
+    Any leading batch/channel shape broadcasts against (mr, mi).  The
+    DC harmonic is dropped unless f0_fact (reference F0_fact)."""
+    dFT = jnp.fft.rfft(data_port, axis=-1)
+    dr, di = dFT.real, dFT.imag
+    if not f0_fact:
+        dr = dr.at[..., 0].set(0.0)
+        di = di.at[..., 0].set(0.0)
+    return (dr * mr + di * mi, di * mr - dr * mi,
+            jnp.sum(dr * dr + di * di, axis=-1))
+
+
 def make_setup(data_port, model_port, errs, P, freqs, nu_DM, nu_GM, nu_tau,
-               weights=None, f0_fact=F0_FACT, fft_matmul=False,
-               model_ft_ri=None, dft_precision=None, stats_dtype=None):
+               weights=None, f0_fact=F0_FACT, model_ft_ri=None,
+               stats_dtype=None):
     """Build a FitSetup from time-domain portraits.
 
     errs: per-channel time-domain noise std (Fourier noise = errs*sqrt(nbin/2),
     reference pptoaslib.py:980-984).  weights: optional 0/1 channel mask.
-    fft_matmul=True computes the rFFTs as MXU DFT matmuls (the TPU-native
-    path: XLA FFT compiles extremely slowly at large nbin; see ops.fourier).
     model_ft_ri: optional precomputed (mr, mi) from model_ft() — the shared-
     model batched path; model_port is ignored (may be None) when given.
     stats_dtype: storage dtype for the loop-invariant spectra Gr/Gi/M2
-    ('bfloat16' halves the Newton loop's HBM traffic; moments accumulate
+    ('bfloat16' halves the Newton loop's read traffic; moments accumulate
     in f32 regardless).  bf16 storage costs ~1e-6 in deterministic phase
-    parity — an explicit opt-in, never the default (PERF.md).
+    parity — an explicit opt-in, never the default.
     """
     data_port = jnp.asarray(data_port)
     nbin = data_port.shape[-1]
-    if fft_matmul:
-        from pulseportraiture_tpu.ops.fourier import rfft_matmul_ri
-        dr, di = rfft_matmul_ri(data_port, precision=dft_precision)
-    else:
-        dFT = jnp.fft.rfft(data_port, axis=-1)
-        dr, di = dFT.real, dFT.imag
     if model_ft_ri is not None:
         mr, mi = model_ft_ri
     else:
-        mr, mi = model_ft(jnp.asarray(model_port), f0_fact=f0_fact,
-                          fft_matmul=fft_matmul,
-                          dft_precision=dft_precision)
-    if not f0_fact:
-        dr = dr.at[..., 0].set(0.0)
-        di = di.at[..., 0].set(0.0)
+        mr, mi = model_ft(jnp.asarray(model_port), f0_fact=f0_fact)
+    Gr, Gi, sd = cross_spectrum(data_port, mr, mi, f0_fact=f0_fact)
     errs_FT = jnp.asarray(errs) * jnp.sqrt(nbin / 2.0)
     w = jnp.where(errs_FT > 0.0, errs_FT ** -2.0, 0.0)
     if weights is not None:
         w = w * (jnp.asarray(weights) > 0.0)
-    # G = dFT * conj(mFT), stored as split real/imag
-    Gr = dr * mr + di * mi
-    Gi = di * mr - dr * mi
     M2 = mr * mr + mi * mi
-    sd_chan = w * jnp.sum(dr * dr + di * di, axis=-1)
+    sd_chan = w * sd
     Sd = jnp.sum(sd_chan, axis=-1)
     S0 = jnp.sum(M2, axis=-1)
     if stats_dtype is not None:
-        sd = jnp.dtype(stats_dtype)
-        Gr = Gr.astype(sd)
-        Gi = Gi.astype(sd)
-        M2 = M2.astype(sd)
+        sdt = jnp.dtype(stats_dtype)
+        Gr = Gr.astype(sdt)
+        Gi = Gi.astype(sdt)
+        M2 = M2.astype(sdt)
     dt = data_port.dtype
     return FitSetup(Gr=Gr, Gi=Gi, M2=M2, w=w,
                     freqs=jnp.asarray(freqs, dt),
@@ -235,8 +208,7 @@ def _phase_trig(phis, k):
     return jnp.cos(ang), jnp.sin(ang)
 
 
-def _moments(params, setup, log10_tau, order, scattering=True,
-             use_pallas=None):
+def _moments(params, setup, log10_tau, order, scattering=True):
     """Shared harmonic reductions for value/grad/hess.
 
     order: 0 -> value only, 1 -> + gradient terms, 2 -> + Hessian terms.
@@ -273,16 +245,6 @@ def _moments(params, setup, log10_tau, order, scattering=True,
             "S": w * setup.S0,
         }
         zero1 = jnp.zeros_like(setup.freqs)
-        if order == 2 and _use_pallas_moments(use_pallas, kind="phase"):
-            # fused single-pass TPU kernel (ops/pallas_moments.py)
-            from pulseportraiture_tpu.ops.pallas_moments import \
-                phase_moments
-            C, Cp, Cpp = phase_moments(phis, Gr, Gi, kvec=kvec)
-            phis_d = phase_shifts_deriv(setup.freqs, setup.nu_DM,
-                                        setup.nu_GM, setup.P)
-            out.update(C=w * C, Cp=w * Cp, Cpp=w * Cpp, phis_d=phis_d,
-                       Rf=zero1, S1=zero1, If1=zero1, Rg=zero1, S2=zero1)
-            return out
         zr = Gr * Pr - Gi * Pi
         zi = Gr * Pi + Gi * Pr
         out["C"] = w * jnp.sum(zr, axis=-1)
@@ -300,19 +262,6 @@ def _moments(params, setup, log10_tau, order, scattering=True,
         return out
 
     taus, dtau, d2tau = _taus_and_derivs(params, setup, log10_tau)
-
-    if order == 2 and _use_pallas_moments(use_pallas, kind="scatter"):
-        # fused single-pass TPU kernel (ops/pallas_moments.py)
-        from pulseportraiture_tpu.ops.pallas_moments import \
-            scattering_moments
-        C, S, Cp, Rf, S1, Cpp, If1, Rg, S2 = scattering_moments(
-            phis, taus, Gr, Gi, M2, kvec=kvec)
-        phis_d = phase_shifts_deriv(setup.freqs, setup.nu_DM,
-                                    setup.nu_GM, setup.P)
-        return {"phis": phis, "taus": taus, "dtau": dtau, "d2tau": d2tau,
-                "C": w * C, "S": w * S, "phis_d": phis_d, "Cp": w * Cp,
-                "Rf": w * Rf, "S1": w * S1, "Cpp": w * Cpp,
-                "If1": w * If1, "Rg": w * Rg, "S2": w * S2}
 
     # B = 1/(1 + i c tau), c = 2 pi k
     ct = TWO_PI * k * taus[..., None]
@@ -424,7 +373,7 @@ def chi2_prime(params, setup, log10_tau=True, scattering=True):
 
 def chi2_value_grad_hess(params, setup, fit_flags=(1, 1, 1, 1, 1),
                          log10_tau=True, scattering=True,
-                         return_moments=False, use_pallas=None):
+                         return_moments=False):
     """(chi2', gradient(5,), Hessian(5,5)) in one fused evaluation.
 
     Gradient: reference pptoaslib.py:544-574; Hessian (amplitude-profiled):
@@ -436,7 +385,7 @@ def chi2_value_grad_hess(params, setup, fit_flags=(1, 1, 1, 1, 1),
     solver and output covariance need no further pass over Gr/Gi).
     """
     m = _moments(params, setup, log10_tau, order=2,
-                 scattering=scattering, use_pallas=use_pallas)
+                 scattering=scattering)
     C, S = m["C"], m["S"]
     si = _masked_inv(S, setup.w)
     r = C * si
@@ -555,12 +504,13 @@ def _covariance_core(m, setup, fit_flags):
     # Cross block U_{j,n} = -2 (dC_j - a_n dS_j), masked (pptoaslib.py:690)
     U = -2.0 * (dC - r * dS) * flags[:, None]          # (5, nchan)
     c_inv = si / 2.0                                   # inv of diag(2 S_n)
-    X = A - (U * c_inv) @ U.T
+    hi = jax.lax.Precision.HIGHEST
+    X = A - jnp.matmul(U * c_inv, U.T, precision=hi)
     X_inv = jnp.linalg.inv(X)
     param_cov = 2.0 * X_inv * fo
     param_errs = jnp.sqrt(jnp.clip(jnp.diag(param_cov), 0.0))
     # LR block diagonal: 2 (c_inv + c_inv^2 * U^T X_inv U)
-    UXU = jnp.einsum("in,ij,jn->n", U, X_inv, U)
+    UXU = jnp.einsum("in,ij,jn->n", U, X_inv, U, precision=hi)
     scale_vars = 2.0 * (c_inv + c_inv * c_inv * UXU)
     scale_errs = jnp.sqrt(jnp.clip(scale_vars, 0.0))
     return param_cov, param_errs, r, scale_errs, S

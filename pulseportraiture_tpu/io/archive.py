@@ -22,9 +22,8 @@ def _tune_allocator():
 
     Campaign loads allocate ~10 multi-10-MB arrays per archive; above
     glibc's default mmap threshold each is mapped and unmapped per call,
-    so every archive re-pays soft page faults on first touch (measured
-    2-3.5 s/archive at 4096x2048 on the campaign host vs ~0.2 s once
-    pages recycle).  Raising the threshold keeps the blocks on the heap
+    so every archive re-pays soft page faults on first touch.  Raising
+    the threshold keeps the blocks on the heap
     for reuse.  Gated by PP_MALLOPT=0; silently skipped off glibc.
     """
     import os

@@ -104,9 +104,8 @@ class Archive:
 
     def _rotate_dm(self, sign):
         # host float64 rotation (mirrors ops.rotate.rotate_data): archive
-        # loading must not bounce off the accelerator — on remote-TPU
-        # backends every device call costs a ~30-50 ms round trip, and
-        # f64 keeps the many-turn dispersion phases exact
+        # loading stays off the accelerator, and f64 keeps the
+        # many-turn dispersion phases exact
         from pulseportraiture_tpu.config import DCONST
         d = np.asarray(self.data, dtype=np.float64)
         nsub, npol, nchan, nbin = d.shape

@@ -1,29 +1,18 @@
-"""Fused Cooley-Tukey DFT + cross-spectrum setup kernel (Pallas TPU).
+"""Model-band harmonic cap and the capped direct-DFT fit setup.
 
 The fit setup needs Gr/Gi = split-real d_FT * conj(m_FT) from the
-time-domain data.  The direct DFT-as-matmul costs 2*nbin*nharm MACs per
-channel on the MXU; this kernel factors nbin = NQ * 128 and computes
+time-domain data.  A narrow template's spectrum is identically zero
+(after band_cap_model_ft's cleaning) above a few hundred harmonics, so
+only k < NQ*M' (nbin = NQ * 128, M' = mharm) need storing.
+direct_capped_setup computes just those harmonics as one plain-XLA
+(B*nchan, nbin) @ (nbin, NH+1) matmul, which partitions under GSPMD.
 
-  step 1 (VPU):  A[c,r,u] = sum_q x[c, 128 q + r] e^{-2 pi i q u / NQ}
-                 — NQ scalar-weighted accumulations of 128-lane slices
-  twiddle:       B = A * e^{-2 pi i r u / nbin}
-  step 2 (MXU):  X_{NQ m + u} = sum_r B[c,r,u] e^{-2 pi i r m / 128}
-                 — per-u (CBLK,128) @ (128, M) dots, M = nbin/(2 NQ)+1
-
-for ~8x fewer MACs at nbin=2048, and fuses the Gr/Gi construction
-(multiply by the model spectrum) and the |dFT|^2 data-power reduction
-into the same VMEM pass — the setup touches HBM exactly once per array.
-
-The outputs are stored in **CT-permuted harmonic order**: position
-p = u*M0 + m (M0 = 64) holds harmonic k = NQ*m + u, and the final
-position holds the Nyquist harmonic — NH == nbin/2 + 1, the same
-storage as natural order, just permuted.  Every downstream reduction
-(moments, Hessians, scales) is order-free given the per-lane k vector
-(`ct_kvec`); the Pallas moments kernels additionally exploit the
-64-lane-aligned block structure to keep the factored-phasor trig
-(e^{2 pi i phi k} = e^{2 pi i (NQ phi) m} * e^{2 pi i phi u}, trig on
-64 + NQ values per channel instead of nbin/2; NQ is a power of two so
-NQ*phi is exact in f32).
+The capped outputs are stored in **CT-permuted harmonic order**:
+position p = u*M' + m holds harmonic k = NQ*m + u (the order of a
+Cooley-Tukey split nbin = NQ * 128).  Every downstream reduction
+(moments, Hessians, scales) is order-free given the per-position k
+vector (`ct_kvec`).  The full layout (mharm=None) appends the Nyquist
+harmonic, NH == nbin/2 + 1: the natural-order storage, permuted.
 """
 
 from __future__ import annotations
@@ -38,9 +27,8 @@ _LANES = 128
 
 
 def ct_supported(nbin: int) -> bool:
-    """CT layout applies when nbin = NQ * 128 with NQ even in [2, 32]
-    (even NQ keeps two 64-lane u-blocks per 128-lane vector, which the
-    moments kernels exploit for phasor factoring)."""
+    """The CT layout applies when nbin = NQ * 128 with NQ even in
+    [2, 32]."""
     NQ = nbin // _LANES
     return nbin % _LANES == 0 and 2 <= NQ <= 32 and NQ % 2 == 0
 
@@ -167,30 +155,25 @@ def unpermute_spectrum(re_p, im_p, nbin):
     return re_p[..., pos], im_p[..., pos]
 
 
-def direct_cap_wins(mharm, dft_precision) -> bool:
-    """Static dispatch: does the direct capped DFT-matmul setup beat
-    the Pallas CT kernel?
+# The pipeline's mesh route takes the capped direct setup below this
+# model-band cap and the full-band sharded setup above it.  The
+# threshold is where the capped setup stopped paying on the machine the
+# code was first tuned for; its crossover on the H100 is not measured.
+DIRECT_MHARM_MAX = 16
 
-    Cost model anchored to on-chip measurements (PERF.md, probe
-    scripts/tpu_capped_setup_probe.py at 128x4096x2048): the CT
-    kernel's step-1 q-DFT is ~NQ complex VPU MACs per bin regardless
-    of the cap, worth ~32*NQ MXU-equivalent flops at the VPU/MXU
-    throughput ratio; the direct setup is 2*(NH+1) ~ 2*NQ*mharm MXU
-    MACs per bin.  Both sides scale with NQ, so the crossover is
-    mharm ~ 16 independent of nbin; measured: 25.5 vs 43.7 ms/batch
-    at mharm=8 (direct wins 1.7x), est. ~wash at mharm=16.  At
-    precision HIGHEST the MXU rate halves (28 vs 51 TFLOP/s) and the
-    crossover drops below mharm=8, so direct only dispatches at
-    high/default.  PP_DIRECT_CAP=0/1 force-overrides (measurement)."""
-    import os
 
-    env = os.environ.get("PP_DIRECT_CAP")
-    if env is not None:
-        return bool(int(env)) and mharm is not None
-    if mharm is None:
-        return False
-    prec = (dft_precision or "high").lower()
-    return mharm < 16 and prec != "highest"
+def dot_precision(dft_precision):
+    """lax dot precision for a DFT matmul: "highest" -> full f32;
+    "high" -> three bf16 passes with f32 accumulation, about 2^-21
+    relative.  Never TF32, which keeps about three decimal digits and
+    breaks the 1e-9 dDM budget."""
+    name = (dft_precision or "high").lower()
+    if name == "highest":
+        return jax.lax.Precision.HIGHEST
+    if name == "high":
+        return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    raise ValueError(f"dft_precision must be 'high' or 'highest', got "
+                     f"{dft_precision!r}")
 
 
 @functools.lru_cache(maxsize=8)
@@ -209,21 +192,17 @@ def _direct_consts_np(nbin: int, mharm: int):
 def direct_capped_setup(x, mr_p, mi_p, f0_fact=False,
                         dft_precision="high", w=None, scale=None,
                         mharm=None):
-    """Capped setup as ONE direct DFT-matmul on the MXU (XLA, no Pallas).
+    """Capped fit setup as one direct DFT matmul over the kept harmonics.
 
-    Same contract and outputs as ct_setup(..., mharm=mharm) — Gr/Gi/sd
-    (+ gsr/gsi when w is given) in CT-permuted order — but computed as
-    (B*nchan, nbin) @ (nbin, NH+1) matmuls over just the kept harmonics.
-    Rationale (VERDICT r3 next #1 / scripts/tpu_capped_setup_probe.py):
-    with the model-band harmonic cap the CT kernel's step-1 q-DFT is
-    NQ^2 VPU accumulations per channel regardless of the cap, making
-    the capped setup compute-bound; at mharm=8 the direct matmul is
-    pure MXU work and wins.  Being plain XLA it also partitions under
-    GSPMD (the mesh path needs no shard_map for it).
-
-    The hot loop is unchanged: outputs use the same CT-permuted layout
-    (trig columns are permuted at build time), so the Pallas moments
-    kernels and ct_kvec bookkeeping apply as-is.
+    x: (B, nchan, nbin) or (nchan, nbin) data (f32, or int16 with the
+    per-channel dequantization `scale`); mr_p/mi_p: the shared model
+    spectrum in the capped CT-permuted order (permute_spectrum).
+    Returns Gr/Gi (..., nchan, NH), the per-channel data power sd over
+    ALL harmonics (Parseval, so chi2 keeps the full data power), and
+    with seed weights w also the band sums gsr/gsi (..., [K,] NH) that
+    feed the brute (phi, DM) seed.  Plain XLA, so it partitions under
+    GSPMD (parallel/mesh.py fit_portrait_full_sharded_direct).
+    dft_precision: see dot_precision.
     """
     squeeze = x.ndim == 2
     if squeeze:
@@ -233,10 +212,7 @@ def direct_capped_setup(x, mr_p, mi_p, f0_fact=False,
     NQ, M0, NH = ct_geometry(nbin, mharm)
     assert mr_p.shape[-1] == NH, \
         f"model spectrum has {mr_p.shape[-1]} positions, layout wants {NH}"
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT}[
-        (dft_precision or "high").lower()]
+    prec = dot_precision(dft_precision)
     Ecnp, Esnp = _direct_consts_np(nbin, mharm)
     Ec = jnp.asarray(Ecnp)
     Es = jnp.asarray(Esnp)
@@ -252,7 +228,7 @@ def direct_capped_setup(x, mr_p, mi_p, f0_fact=False,
         # int16-native ingest: per-channel dequantize applied AFTER the
         # DFT (the transform is linear in the per-channel scale); the
         # per-profile offsets only feed the DC harmonic, which F0_FACT
-        # zeroing discards (ct_setup's convention)
+        # zeroing discards
         assert not f0_fact, \
             "int16 ingest drops per-channel offsets into the DC " \
             "harmonic; it requires F0_FACT zeroing"
@@ -264,7 +240,7 @@ def direct_capped_setup(x, mr_p, mi_p, f0_fact=False,
     Xr, ny = Xr_full[..., :NH], Xr_full[..., NH]
     x0 = Xr[..., 0]          # position 0 holds harmonic k = 0
     # Parseval data power over ALL harmonics k=1..nbin/2 (plus DC when
-    # f0_fact keeps it) — exact regardless of the cap (ct_setup kernel)
+    # f0_fact keeps it) — exact regardless of the cap
     sd = 0.5 * (jnp.float32(nbin) * sx2 - x0 * x0) + 0.5 * ny * ny
     if f0_fact:
         sd = sd + x0 * x0
@@ -279,8 +255,9 @@ def direct_capped_setup(x, mr_p, mi_p, f0_fact=False,
         # (fitters.portrait _seed_phi_dm); plain (nchan,)/(B, nchan)
         # weights keep the single band-summed output shape
         w3, stacked = _seed_weights(w, B, nchan)
-        gsr = jnp.einsum("bcs,bck->bsk", w3, Gr)
-        gsi = jnp.einsum("bcs,bck->bsk", w3, Gi)
+        hi = jax.lax.Precision.HIGHEST
+        gsr = jnp.einsum("bcs,bck->bsk", w3, Gr, precision=hi)
+        gsi = jnp.einsum("bcs,bck->bsk", w3, Gi, precision=hi)
         if not stacked:
             gsr, gsi = gsr[:, 0], gsi[:, 0]
         if squeeze:
@@ -304,671 +281,3 @@ def _seed_weights(w, B, nchan):
             f"stacked seed weights are (B, nchan, K); got {w.shape}"
         return jnp.broadcast_to(w, (B, nchan, w.shape[-1])), True
     return jnp.broadcast_to(w, (B, nchan))[..., None], False
-
-
-@functools.lru_cache(maxsize=8)
-def _direct_slab_np(nbin: int, mharm: int):
-    """bf16 hi/lo split of the CT-permuted direct-DFT trig slab for the
-    fused Pallas setup kernel (pallas_direct_setup).
-
-    Layout (nbin, 2*NH): columns [0, NH) hold cos(2 pi j kvec[p]/nbin);
-    columns [NH, 2*NH) hold sin(2 pi j kvec[p]/nbin) for p >= 1 while
-    the p = 0 slot — the DC harmonic's imaginary part, identically zero
-    for real input — is repurposed for the Nyquist cos column (-1)^j
-    (needed by the Parseval sd).  2*NH stays a lane multiple whenever
-    NH is, so the kernel's dot output pads nothing (the XLA direct
-    setup's 258-column matmul pads to 384 — 1.5x wasted MXU work).
-
-    The f64 slab is split E = Ehi + Elo with both parts bf16: three
-    bf16 MXU passes (xhi Ehi + xlo Ehi + xhi Elo) then reproduce
-    lax.Precision.HIGH's accuracy class at the native bf16 rate."""
-    kv = ct_perm_np(nbin, mharm).astype(np.float64)
-    j = np.arange(nbin, dtype=np.float64)[:, None]
-    ang = 2.0 * np.pi * j * kv[None, :] / nbin
-    sin = np.sin(ang)
-    sin[:, 0] = np.cos(np.pi * j[:, 0])          # Nyquist in the dead slot
-    E = np.concatenate([np.cos(ang), sin], axis=1)
-    Ehi = E.astype(jnp.bfloat16)
-    Elo = (E - np.asarray(Ehi, np.float64)).astype(jnp.bfloat16)
-    return Ehi, Elo
-
-
-def _direct_kernel_factory(nbin, NH, f0_fact, npass, kseed,
-                           with_scale):
-    """Fused direct-DFT setup kernel body: one HBM read of the data
-    tile, MXU dots against the VMEM-resident trig slab, and the same
-    fused epilogue as ct_setup (dequantize, Parseval sd, Gr/Gi,
-    band-summed seed accumulators).  kseed: number of stacked seed
-    weight vectors (0 = no seed outputs)."""
-    with_seed = kseed > 0
-
-    def kernel(x_ref, ehi_ref, elo_ref, mr_ref, mi_ref, *rest):
-        if with_scale:
-            scl_ref, rest = rest[0], rest[1:]
-        if with_seed:
-            # one (gsr, gsi) output-ref pair PER seed vector: Mosaic
-            # cannot concatenate sub-lane-width vectors along the
-            # sublane axis, so the stacked-K result is assembled on
-            # the host from K independent accumulators
-            w_ref, gr_ref, gi_ref, sd_ref = rest[:4]
-            seed_refs = rest[4:]
-        else:
-            gr_ref, gi_ref, sd_ref = rest
-        x = x_ref[0]                     # (CBLK, nbin) f32 or int16
-        xf = x.astype(jnp.float32)
-        # manual split-bf16 matmul: HIGH-precision accuracy at the
-        # native bf16 MXU rate (Mosaic dots only offer DEFAULT and
-        # HIGHEST; HIGHEST runs at ~28 vs 119 TFLOP/s)
-        xhi = xf.astype(jnp.bfloat16)
-        Ehi = ehi_ref[:]
-        o = jnp.dot(xhi, Ehi, preferred_element_type=jnp.float32)
-        if npass >= 2:
-            o = o + jnp.dot(xhi, elo_ref[:],
-                            preferred_element_type=jnp.float32)
-        if npass >= 3:
-            xlo = (xf - xhi.astype(jnp.float32)).astype(jnp.bfloat16)
-            o = o + jnp.dot(xlo, Ehi,
-                            preferred_element_type=jnp.float32)
-        Xr = o[:, :NH]
-        t2 = o[:, NH:]
-        ny = t2[:, :1]                    # Nyquist (dead DC-imag slot)
-        # X_k = sum x e^{-2 pi i k j/nbin}: imag = -sin sums; DC slot 0
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, NH), 1)
-        Xi = jnp.where(col == 0, 0.0, -t2)
-        sx2 = jnp.sum(xf * xf, axis=-1, keepdims=True)
-        if with_scale:
-            scl = scl_ref[0]              # (CBLK, 1)
-            Xr = Xr * scl
-            Xi = Xi * scl
-            ny = ny * scl
-            sx2 = sx2 * scl * scl
-        x0 = Xr[:, :1]
-        # Parseval data power over ALL harmonics k=1..nbin/2 (+ DC when
-        # f0_fact keeps it) — exact regardless of the cap (ct_setup)
-        sd = 0.5 * (jnp.float32(nbin) * sx2 - x0 * x0) + 0.5 * ny * ny
-        if f0_fact:
-            sd = sd + x0 * x0
-        mr = mr_ref[:]
-        mi = mi_ref[:]
-        grv = Xr * mr + Xi * mi
-        giv = Xi * mr - Xr * mi
-        if not f0_fact:
-            grv = jnp.where(col == 0, 0.0, grv)
-            giv = jnp.where(col == 0, 0.0, giv)
-        gr_ref[0] = grv
-        gi_ref[0] = giv
-        sd_ref[0] = sd
-        if with_seed:
-            from jax.experimental import pallas as pl
-            wblk = w_ref[0]               # (CBLK, K)
-            i = pl.program_id(1)
-            for k in range(kseed):
-                ssr = jnp.sum(wblk[:, k:k + 1] * grv, axis=0,
-                              keepdims=True)           # (1, NH)
-                ssi = jnp.sum(wblk[:, k:k + 1] * giv, axis=0,
-                              keepdims=True)
-                gsr_ref = seed_refs[2 * k]
-                gsi_ref = seed_refs[2 * k + 1]
-
-                @pl.when(i == 0)
-                def _init(gsr_ref=gsr_ref, gsi_ref=gsi_ref, ssr=ssr,
-                          ssi=ssi):
-                    gsr_ref[0] = ssr
-                    gsi_ref[0] = ssi
-
-                @pl.when(i > 0)
-                def _acc(gsr_ref=gsr_ref, gsi_ref=gsi_ref, ssr=ssr,
-                         ssi=ssi):
-                    gsr_ref[0] = gsr_ref[0] + ssr
-                    gsi_ref[0] = gsi_ref[0] + ssi
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("f0_fact", "npass",
-                                             "interpret", "mharm"))
-def pallas_direct_setup(x, mr_p, mi_p, f0_fact=False, w=None, scale=None,
-                        mharm=None, npass=3, interpret=False):
-    """Capped setup as a FUSED Pallas kernel: in-kernel MXU dots against
-    a VMEM-resident bf16-split trig slab.
-
-    Same contract and outputs as direct_capped_setup / ct_setup(...,
-    mharm=) — CT-permuted Gr/Gi/sd (+ gsr/gsi seed sums with w) — but
-    the data tile is read from HBM exactly ONCE: the XLA direct setup
-    pays a second full pass for the Parseval sum(x^2) reduction (XLA
-    cannot fuse a reduction into a dot operand) plus 1.5x MXU padding
-    on its 258-column matmul; here sum(x^2), the dequantize, the Gr/Gi
-    construction and the seed accumulators all ride the same VMEM
-    residency, and the slab is exactly 2*NH = 256 lanes.
-
-    npass: split-bf16 passes — 3 reproduces lax.Precision.HIGH
-    (xhi Ehi + xlo Ehi + xhi Elo), 2 drops the data's lo half (the
-    trig slab stays split: error becomes a ~2^-9 relative white
-    perturbation of the DATA, invisible under any physical noise but
-    outside the noiseless parity floor), 1 is DEFAULT-equivalent.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    squeeze = x.ndim == 2
-    if squeeze:
-        x = x[None]
-    B, nchan, nbin = x.shape
-    assert mharm is not None, "pallas_direct_setup requires the cap"
-    NQ, M0, NH = ct_geometry(nbin, mharm)
-    # unlike direct_capped_setup this kernel blocks the model as 2-D;
-    # batched per-item model spectra are not supported here (the capped
-    # dispatch only ever feeds the shared 2-D model via model_ft_ri)
-    assert mr_p.ndim == 2, \
-        "pallas_direct_setup requires the shared 2-D model spectrum " \
-        f"(got ndim={mr_p.ndim}); use direct_capped_setup for batched"
-    assert mr_p.shape[-1] == NH, \
-        f"model spectrum has {mr_p.shape[-1]} positions, layout wants {NH}"
-    Ehi_np, Elo_np = _direct_slab_np(nbin, mharm)
-    mr_p = mr_p.astype(jnp.float32)
-    mi_p = mi_p.astype(jnp.float32)
-    with_scale = scale is not None
-    if with_scale:
-        assert not f0_fact, \
-            "int16 ingest drops per-channel offsets into the DC " \
-            "harmonic; it requires F0_FACT zeroing"
-        scale = jnp.broadcast_to(jnp.asarray(scale, jnp.float32),
-                                 (B, nchan))[..., None]
-    else:
-        x = x.astype(jnp.float32)
-    with_seed = w is not None
-    kseed, stacked = 0, False
-    if with_seed:
-        w, stacked = _seed_weights(w, B, nchan)
-        kseed = w.shape[-1]
-    cblk = 128 if nchan >= 128 else nchan + ((-nchan) % 8)
-    pad = (-nchan) % cblk
-    if pad:
-        x = jnp.pad(x, [(0, 0), (0, pad), (0, 0)])
-        mr_p = jnp.pad(mr_p, [(0, pad), (0, 0)])
-        mi_p = jnp.pad(mi_p, [(0, pad), (0, 0)])
-        if with_seed:
-            w = jnp.pad(w, [(0, 0), (0, pad), (0, 0)])
-        if with_scale:
-            scale = jnp.pad(scale, [(0, 0), (0, pad), (0, 0)])
-    ntot = nchan + pad
-    grid = (B, ntot // cblk)
-    kern = _direct_kernel_factory(nbin, NH, bool(f0_fact), int(npass),
-                                  kseed, with_scale)
-    out_shapes = (jax.ShapeDtypeStruct((B, ntot, NH), jnp.float32),
-                  jax.ShapeDtypeStruct((B, ntot, NH), jnp.float32),
-                  jax.ShapeDtypeStruct((B, ntot, 1), jnp.float32))
-    out_specs = (pl.BlockSpec((1, cblk, NH), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((1, cblk, NH), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((1, cblk, 1), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM))
-    if with_seed:
-        # one (B, 1, NH) accumulator pair per seed vector (see kernel)
-        out_shapes = out_shapes + 2 * kseed * (
-            jax.ShapeDtypeStruct((B, 1, NH), jnp.float32),)
-        out_specs = out_specs + 2 * kseed * (
-            pl.BlockSpec((1, 1, NH), lambda b, i: (b, 0, 0),
-                         memory_space=pltpu.VMEM),)
-    in_specs = [
-        pl.BlockSpec((1, cblk, nbin), lambda b, i: (b, i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((nbin, 2 * NH), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((nbin, 2 * NH), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((cblk, NH), lambda b, i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((cblk, NH), lambda b, i: (i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [x, jnp.asarray(Ehi_np), jnp.asarray(Elo_np), mr_p, mi_p]
-    if with_scale:
-        in_specs.append(pl.BlockSpec((1, cblk, 1), lambda b, i: (b, i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(scale)
-    if with_seed:
-        in_specs.append(pl.BlockSpec((1, cblk, kseed),
-                                     lambda b, i: (b, i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(w)
-    flops = npass * 2 * B * ntot * nbin * 2 * NH
-    out = pl.pallas_call(
-        kern,
-        out_shape=out_shapes,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=x.size * x.dtype.itemsize +
-            2 * B * ntot * NH * 4,
-            transcendentals=0),
-    )(*args)
-    Gr_p, Gi_p, sd = out[:3]
-    Gr_p = Gr_p[:, :nchan]
-    Gi_p = Gi_p[:, :nchan]
-    sd = sd[:, :nchan, 0]
-    if with_seed:
-        # K accumulator pairs -> (B, K, NH) (or the legacy (B, NH))
-        gsr = jnp.concatenate(out[3::2], axis=1)
-        gsi = jnp.concatenate(out[4::2], axis=1)
-        if not stacked:
-            gsr, gsi = gsr[:, 0], gsi[:, 0]
-        if squeeze:
-            return Gr_p[0], Gi_p[0], sd[0], gsr[0], gsi[0]
-        return Gr_p, Gi_p, sd, gsr, gsi
-    if squeeze:
-        return Gr_p[0], Gi_p[0], sd[0]
-    return Gr_p, Gi_p, sd
-
-
-@functools.lru_cache(maxsize=8)
-def _ct_step2_split_np(nbin: int, M0: int):
-    """bf16 hi/lo split of the CT step-2 trig matrices (f64 masters),
-    for the in-kernel split-bf16 HIGH-precision dots (see ct_setup:
-    three bf16 passes reproduce lax.Precision.HIGH at the native MXU
-    rate, vs HIGHEST's six)."""
-    r = np.arange(_LANES, dtype=np.float64)
-    m = np.arange(M0, dtype=np.float64)
-    C2 = np.cos(2.0 * np.pi * np.outer(r, m) / _LANES)
-    S2 = np.sin(2.0 * np.pi * np.outer(r, m) / _LANES)
-    C2hi = C2.astype(jnp.bfloat16)
-    S2hi = S2.astype(jnp.bfloat16)
-    C2lo = (C2 - np.asarray(C2hi, np.float64)).astype(jnp.bfloat16)
-    S2lo = (S2 - np.asarray(S2hi, np.float64)).astype(jnp.bfloat16)
-    return C2hi, C2lo, S2hi, S2lo
-
-
-@functools.lru_cache(maxsize=8)
-def _ct_consts_np(nbin: int):
-    """Step-1 scalar weights, step-2 matrices, twiddles, and the
-    alternating Nyquist row (host)."""
-    NQ, M0, _ = ct_geometry(nbin)
-    q = np.arange(NQ)
-    u = np.arange(NQ)
-    E1c = np.cos(2.0 * np.pi * np.outer(q, u) / NQ)
-    E1s = np.sin(2.0 * np.pi * np.outer(q, u) / NQ)
-    r = np.arange(_LANES)
-    m = np.arange(M0)
-    C2 = np.cos(2.0 * np.pi * np.outer(r, m) / _LANES).astype(np.float32)
-    S2 = np.sin(2.0 * np.pi * np.outer(r, m) / _LANES).astype(np.float32)
-    TC = np.cos(2.0 * np.pi * np.outer(u, r) / nbin).astype(np.float32)
-    TS = np.sin(2.0 * np.pi * np.outer(u, r) / nbin).astype(np.float32)
-    ALT = ((-1.0) ** r).astype(np.float32)[None, :]      # (1, 128)
-    return E1c, E1s, C2, S2, TC, TS, ALT
-
-
-def _ct_setup_kernel_factory(nbin, f0_fact, prec, kseed=0,
-                             with_scale=False, mharm=None,
-                             split_high=False):
-    NQ, M0, NH = ct_geometry(nbin, mharm)
-    capped = mharm is not None
-    with_seed = kseed > 0
-    E1c, E1s, _, _, _, _, _ = _ct_consts_np(nbin)
-
-    def _wsum(wblk, g):
-        # (CBLK, K) weights x (CBLK, M) values -> K x (1, M) seed sums
-        # (kept as a per-k LIST: Mosaic cannot concatenate sub-lane
-        # vectors along the sublane axis, so each seed vector owns its
-        # own accumulator ref and the K-stack is assembled on the host)
-        return [jnp.sum(wblk[:, k:k + 1] * g, axis=0, keepdims=True)
-                for k in range(kseed)]
-
-    def kernel(x_ref, mr_ref, mi_ref, c2_ref, s2_ref, tc_ref, ts_ref,
-               alt_ref, *rest):
-        if split_high:
-            # dft_precision="high": manual split-bf16 step-2 dots
-            # (x_hi E_hi + x_lo E_hi + x_hi E_lo) at the native bf16
-            # MXU rate — Mosaic only offers DEFAULT/HIGHEST and the
-            # HIGHEST lowering is 6 passes (~28 ms of a B=128
-            # 4096x2048 uncapped setup); c2/s2 hold the bf16 HI trig
-            # parts and two extra refs carry the LO parts
-            c2lo_ref, s2lo_ref = rest[0], rest[1]
-            rest = rest[2:]
-        if with_scale:
-            # int16-native ingest: the archive's quantized samples are
-            # dequantized in VMEM (value = scale_c * raw; the per-channel
-            # offset only feeds the DC harmonic, which F0_FACT zeroing
-            # discards) — HBM reads half the bytes of the f32 path
-            scl_ref, rest = rest[0], rest[1:]
-        if with_seed:
-            # seed mode: one extra (cblk, K) weight input and one
-            # (1, NH) output pair PER seed vector accumulating
-            # sum_c w_ck * G over the channel-block grid axis — the
-            # brute phase(/DM) seed's band-summed cross-spectra for
-            # free while G is in VMEM
-            w_ref, gr_ref, gi_ref, sd_ref = rest[:4]
-            seed_refs = rest[4:]
-            wblk = w_ref[0]                    # (CBLK, K)
-            seg_r = [[] for _ in range(kseed)]
-            seg_i = [[] for _ in range(kseed)]
-        else:
-            gr_ref, gi_ref, sd_ref = rest
-        if split_high:
-            C2hi = c2_ref[:]
-            S2hi = s2_ref[:]
-            C2lo = c2lo_ref[:]
-            S2lo = s2lo_ref[:]
-
-            def _split3(b, mhi, mlo):
-                bhi = b.astype(jnp.bfloat16)
-                blo = (b - bhi.astype(jnp.float32)).astype(jnp.bfloat16)
-                return (jnp.dot(bhi, mhi,
-                                preferred_element_type=jnp.float32) +
-                        jnp.dot(blo, mhi,
-                                preferred_element_type=jnp.float32) +
-                        jnp.dot(bhi, mlo,
-                                preferred_element_type=jnp.float32))
-
-            def dotC(b):
-                return _split3(b, C2hi, C2lo)
-
-            def dotS(b):
-                return _split3(b, S2hi, S2lo)
-        else:
-            C2 = c2_ref[:]
-            S2 = s2_ref[:]
-
-            def dotC(b):
-                return jnp.dot(b, C2, precision=prec,
-                               preferred_element_type=jnp.float32)
-
-            def dotS(b):
-                return jnp.dot(b, S2, precision=prec,
-                               preferred_element_type=jnp.float32)
-        x = x_ref[0]                # (CBLK, nbin); batch dim in grid
-        if with_scale:
-            x = x.astype(jnp.float32) * scl_ref[0]     # (CBLK, 1) scale
-        sd_acc = jnp.zeros_like(x[:, :1])
-        if capped:
-            # model-band harmonic cap: the dropped Gr/Gi/M2 elements
-            # are exactly zero (model zero there), but the data power
-            # sum must still cover ALL harmonics — Parseval gives it
-            # from the time domain: sum_{k=1..N/2}|X_k|^2 =
-            # (N*sum x^2 - X0^2)/2 + X_ny^2/2   (X0, X_ny accumulated
-            # below; both are exact DFT bins).
-            sx2 = jnp.sum(x * x, axis=-1, keepdims=True)
-            x0 = jnp.sum(x, axis=-1, keepdims=True)
-        ny = None
-        dc2 = None
-        for u in range(NQ):
-            # step 1: A = sum_q x_q e^{-2 pi i q u/NQ}; Ar/Ai via scalar
-            # weights (many are 0/±1 and fold away at trace time)
-            Ar = None
-            Ai = None
-            for q in range(NQ):
-                c = float(E1c[q, u])
-                s = float(E1s[q, u])
-                xq = x[:, q * _LANES:(q + 1) * _LANES]
-                if abs(c) > 1e-12:
-                    t = xq if c == 1.0 else (-xq if c == -1.0 else c * xq)
-                    Ar = t if Ar is None else Ar + t
-                if abs(s) > 1e-12:
-                    t = xq if s == 1.0 else (-xq if s == -1.0 else s * xq)
-                    Ai = t if Ai is None else Ai + t
-            if u == 0:
-                # Nyquist harmonic: sum_j (-1)^j x_j = sum_r (-1)^r A0_r
-                ny = jnp.sum(Ar * alt_ref[:], axis=-1, keepdims=True)
-            # A = Ar - i*Ai  (Ai accumulated with +sin weights)
-            tc = tc_ref[u:u + 1, :]
-            ts = ts_ref[u:u + 1, :]
-            if Ai is None:
-                Br = Ar * tc
-                Bi = -(Ar * ts)
-            else:
-                # (Ar - i Ai)(tc - i ts)
-                Br = Ar * tc - Ai * ts
-                Bi = -(Ar * ts + Ai * tc)
-            # step 2: X = sum_r (Br + i Bi) e^{-2 pi i r m/128}
-            Xr = dotC(Br) + dotS(Bi)
-            Xi = dotC(Bi) - dotS(Br)
-            if u == 0 and not f0_fact and not capped:
-                dc2 = Xr[:, :1] * Xr[:, :1] + Xi[:, :1] * Xi[:, :1]
-            mr = mr_ref[:, u * M0:(u + 1) * M0]
-            mi = mi_ref[:, u * M0:(u + 1) * M0]
-            grv = Xr * mr + Xi * mi
-            giv = Xi * mr - Xr * mi
-            gr_ref[0, :, u * M0:(u + 1) * M0] = grv
-            gi_ref[0, :, u * M0:(u + 1) * M0] = giv
-            if not capped:
-                sd_acc = sd_acc + jnp.sum(Xr * Xr + Xi * Xi, axis=-1,
-                                          keepdims=True)
-            if with_seed:
-                if u == 0 and not f0_fact:
-                    # DC position is zeroed in the outputs below
-                    grv = jnp.concatenate(
-                        [jnp.zeros_like(grv[:, :1]), grv[:, 1:]], axis=-1)
-                    giv = jnp.concatenate(
-                        [jnp.zeros_like(giv[:, :1]), giv[:, 1:]], axis=-1)
-                for k, (sr, si) in enumerate(zip(_wsum(wblk, grv),
-                                                 _wsum(wblk, giv))):
-                    seg_r[k].append(sr)
-                    seg_i[k].append(si)
-        if capped:
-            # Parseval data power over ALL harmonics k=1..N/2 (plus DC
-            # when f0_fact keeps it) — exact regardless of the cap
-            sd_acc = 0.5 * (jnp.float32(nbin) * sx2 - x0 * x0) + \
-                0.5 * (ny * ny)
-            if f0_fact:
-                sd_acc = sd_acc + x0 * x0
-        else:
-            # Nyquist position (real-valued harmonic nbin/2)
-            mr_n = mr_ref[:, NH - 1:NH]
-            mi_n = mi_ref[:, NH - 1:NH]
-            gr_ref[0, :, NH - 1:NH] = ny * mr_n
-            gi_ref[0, :, NH - 1:NH] = -(ny * mi_n)
-            sd_acc = sd_acc + ny * ny
-        if not f0_fact:
-            # DC harmonic zeroed (position 0 is u=0, m=0)
-            zero = jnp.zeros_like(ny)
-            gr_ref[0, :, 0:1] = zero
-            gi_ref[0, :, 0:1] = zero
-            if not capped:
-                sd_acc = sd_acc - dc2
-        sd_ref[0] = sd_acc
-        if with_seed:
-            from jax.experimental import pallas as pl
-            if not capped:
-                for k, (sr, si) in enumerate(zip(
-                        _wsum(wblk, ny * mr_n),
-                        _wsum(wblk, -(ny * mi_n)))):
-                    seg_r[k].append(sr)
-                    seg_i[k].append(si)
-            i = pl.program_id(1)
-            for k in range(kseed):
-                ssr = jnp.concatenate(seg_r[k], axis=-1)   # (1, NH)
-                ssi = jnp.concatenate(seg_i[k], axis=-1)
-                gsr_ref = seed_refs[2 * k]
-                gsi_ref = seed_refs[2 * k + 1]
-
-                @pl.when(i == 0)
-                def _init(gsr_ref=gsr_ref, gsi_ref=gsi_ref, ssr=ssr,
-                          ssi=ssi):
-                    gsr_ref[0] = ssr
-                    gsi_ref[0] = ssi
-
-                @pl.when(i > 0)
-                def _acc(gsr_ref=gsr_ref, gsi_ref=gsi_ref, ssr=ssr,
-                         ssi=ssi):
-                    gsr_ref[0] = gsr_ref[0] + ssr
-                    gsi_ref[0] = gsi_ref[0] + ssi
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("f0_fact", "dft_precision",
-                                             "interpret", "mharm"))
-def ct_setup(x, mr_p, mi_p, f0_fact=False, dft_precision="highest",
-             interpret=False, w=None, scale=None, mharm=None):
-    """Fused CT-DFT + cross-spectrum: (Gr_p, Gi_p, sd) in CT order.
-
-    mharm: optional model-band harmonic cap M' (ct_geometry): mr_p/mi_p
-    must be the capped (nchan, NQ*M') permuted spectrum
-    (permute_spectrum(..., mharm=M')), outputs shrink to NQ*M'
-    positions, and sd switches to the exact Parseval form.  Only valid
-    when the model is identically zero at k >= NQ*M' (suggest_mharm).
-
-    x: (nchan, nbin) or batched (B, nchan, nbin) real data; mr_p/mi_p:
-    the (nchan, NH) model spectrum already in CT order
-    (permute_spectrum) — shared across the batch without
-    materialization (its block index map ignores the batch grid axis).
-    sd: per-channel sum_k |dFT_k|^2 (valid harmonics; DC excluded when
-    f0_fact is falsy).
-
-    w: optional per-channel weights (nchan,) or (B, nchan).  When given,
-    two extra outputs (gsum_r, gsum_i), each (B, NH) (or (NH,) for 2-D
-    x), accumulate sum_c w_c * G_ck in the same VMEM pass — the
-    band-summed cross-spectrum the brute phase seed needs, without a
-    second read of the spectra (fitters.portrait seed_phase path).
-    An explicit 3-D (B, nchan, K) stacks K seed-weight vectors (the
-    (phi, DM) seed passes [full-band, upper-half]); the seed outputs
-    are then (B, K, NH).
-
-    scale: optional per-channel dequantization scale (nchan,) or
-    (B, nchan), used with integer x (int16-native ingest: the PSRFITS
-    DAT_SCL applied in VMEM; requires f0_fact falsy since per-channel
-    offsets are dropped with the DC harmonic).  Halves the kernel's
-    HBM data read vs f32.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    squeeze = x.ndim == 2
-    if squeeze:
-        x = x[None]
-    B, nchan, nbin = x.shape
-    assert ct_supported(nbin)
-    assert mr_p.ndim == 2, "model spectrum is (nchan, NH), shared"
-    NQ, M0, NH = ct_geometry(nbin, mharm)
-    assert mr_p.shape[-1] == NH, \
-        f"model spectrum has {mr_p.shape[-1]} positions, layout wants {NH}"
-    # Mosaic dots support only DEFAULT and HIGHEST; HIGH is reproduced
-    # manually as three split-bf16 passes at the native MXU rate
-    # (round 5 — the previous high->HIGHEST mapping paid the 6-pass
-    # lowering, ~28 ms of a B=128 4096x2048 uncapped setup);
-    # "highest" keeps true Precision.HIGHEST dots
-    eff_prec = (dft_precision or "highest").lower()
-    split_high = eff_prec == "high"
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGHEST,
-            "default": jax.lax.Precision.DEFAULT}[eff_prec]
-    _, _, C2np, S2np, TCnp, TSnp, ALTnp = _ct_consts_np(nbin)
-    if mharm is not None:
-        # step-2 dots only produce the kept m columns
-        C2np = C2np[:, :M0]
-        S2np = S2np[:, :M0]
-    C2lo_np = S2lo_np = None
-    if split_high:
-        C2np, C2lo_np, S2np, S2lo_np = _ct_step2_split_np(nbin, M0)
-    with_scale = scale is not None
-    if with_scale:
-        assert not f0_fact, \
-            "int16 ingest drops per-channel offsets into the DC " \
-            "harmonic; it requires F0_FACT zeroing"
-        scale = jnp.broadcast_to(jnp.asarray(scale, jnp.float32),
-                                 (B, nchan))[..., None]  # (B, nchan, 1)
-    else:
-        x = x.astype(jnp.float32)
-    mr_p = mr_p.astype(jnp.float32)
-    mi_p = mi_p.astype(jnp.float32)
-
-    with_seed = w is not None
-    kseed, stacked = 0, False
-    if with_seed:
-        w, stacked = _seed_weights(w, B, nchan)    # (B, nchan, K)
-        kseed = w.shape[-1]
-    cblk = 128 if nchan >= 128 else nchan + ((-nchan) % 8)
-    pad = (-nchan) % cblk
-    if pad:
-        x = jnp.pad(x, [(0, 0), (0, pad), (0, 0)])
-        mr_p = jnp.pad(mr_p, [(0, pad), (0, 0)])
-        mi_p = jnp.pad(mi_p, [(0, pad), (0, 0)])
-        if with_seed:
-            w = jnp.pad(w, [(0, 0), (0, pad), (0, 0)])
-        if with_scale:
-            scale = jnp.pad(scale, [(0, 0), (0, pad), (0, 0)])
-    ntot = nchan + pad
-    grid = (B, ntot // cblk)
-    kern = _ct_setup_kernel_factory(nbin, bool(f0_fact), prec,
-                                    kseed=kseed,
-                                    with_scale=with_scale, mharm=mharm,
-                                    split_high=split_high)
-    out_shapes = (jax.ShapeDtypeStruct((B, ntot, NH), jnp.float32),
-                  jax.ShapeDtypeStruct((B, ntot, NH), jnp.float32),
-                  jax.ShapeDtypeStruct((B, ntot, 1), jnp.float32))
-    out_specs = (pl.BlockSpec((1, cblk, NH), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((1, cblk, NH), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((1, cblk, 1), lambda b, i: (b, i, 0),
-                              memory_space=pltpu.VMEM))
-    if with_seed:
-        # one (B, 1, NH) accumulator pair per seed vector (see kernel)
-        out_shapes = out_shapes + 2 * kseed * (
-            jax.ShapeDtypeStruct((B, 1, NH), jnp.float32),)
-        out_specs = out_specs + 2 * kseed * (
-            pl.BlockSpec((1, 1, NH), lambda b, i: (b, 0, 0),
-                         memory_space=pltpu.VMEM),)
-    in_specs = [
-        pl.BlockSpec((1, cblk, nbin), lambda b, i: (b, i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((cblk, NH), lambda b, i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((cblk, NH), lambda b, i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((_LANES, M0), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((_LANES, M0), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((NQ, _LANES), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((NQ, _LANES), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, _LANES), lambda b, i: (0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [x, mr_p, mi_p, jnp.asarray(C2np), jnp.asarray(S2np),
-            jnp.asarray(TCnp), jnp.asarray(TSnp), jnp.asarray(ALTnp)]
-    if split_high:
-        in_specs.extend([
-            pl.BlockSpec((_LANES, M0), lambda b, i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_LANES, M0), lambda b, i: (0, 0),
-                         memory_space=pltpu.VMEM)])
-        args.extend([jnp.asarray(C2lo_np), jnp.asarray(S2lo_np)])
-    if with_scale:
-        in_specs.append(pl.BlockSpec((1, cblk, 1), lambda b, i: (b, i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(scale)
-    if with_seed:
-        in_specs.append(pl.BlockSpec((1, cblk, kseed),
-                                     lambda b, i: (b, i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(w)
-    out = pl.pallas_call(
-        kern,
-        out_shape=out_shapes,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        interpret=interpret,
-    )(*args)
-    Gr_p, Gi_p, sd = out[:3]
-    Gr_p = Gr_p[:, :nchan]
-    Gi_p = Gi_p[:, :nchan]
-    sd = sd[:, :nchan, 0]
-    if with_seed:
-        # K accumulator pairs -> (B, K, NH) (or the legacy (B, NH))
-        gsr = jnp.concatenate(out[3::2], axis=1)
-        gsi = jnp.concatenate(out[4::2], axis=1)
-        if not stacked:
-            gsr, gsi = gsr[:, 0], gsi[:, 0]
-        if squeeze:
-            return Gr_p[0], Gi_p[0], sd[0], gsr[0], gsi[0]
-        return Gr_p, Gi_p, sd, gsr, gsi
-    if squeeze:
-        return Gr_p[0], Gi_p[0], sd[0]
-    return Gr_p, Gi_p, sd

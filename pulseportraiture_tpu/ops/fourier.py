@@ -1,183 +1,36 @@
-"""rFFT as an explicit DFT matmul — the MXU-native path.
+"""Split-real rFFT helpers.
 
-XLA's FFT lowering on TPU is slow to compile at large sizes (and routes
-through non-MXU code); a real DFT matmul compiles instantly and runs on
-the systolic array.  The portrait pipeline only ever transforms along the
-phase axis (nbin <= ~4096), and only once per fit (the optimizer loop is
-FFT-free), so an O(n^2) matmul DFT is both faster in practice and
-numerically exact at these sizes: cost nbin^2 ~ 4M MACs/profile vs FFT's
-n log n ~ 11 bins/profile-element — at nbin=2048 the matmul is ~180x more
-FLOPs but lands on the MXU at ~100x the VPU's throughput and avoids the
-multi-minute XLA FFT compile.
-
-Matrices are cached per (nbin, dtype) and cost 2*nbin*nharm*4 bytes
-(~33 MB at nbin=4096 f32).
+The fitters and model builders keep spectra as (real, imag) pairs of
+real arrays: the Newton loop's reductions then stay in real arithmetic.
+These wrappers convert at the jnp.fft boundary.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_mats_np(nbin: int, dtype: str):
-    k = np.arange(nbin // 2 + 1)
-    j = np.arange(nbin)
-    ang = 2.0 * np.pi * np.outer(j, k) / nbin
-    # high-precision host build, cast to target dtype
-    cos_m = np.cos(ang).astype(dtype)
-    sin_m = np.sin(ang).astype(dtype)
-    return cos_m, sin_m
-
-
-def _dft_mats(nbin: int, dtype: str):
-    # Cache NumPy only: jnp conversion inside a jit trace yields a
-    # tracer, and caching that leaks it into later traces (seen as
-    # UnexpectedTracerError on the second fit at a given nbin).  The
-    # per-trace asarray below is a compile-time constant — free at run.
-    cos_m, sin_m = _dft_mats_np(nbin, dtype)
-    return jnp.asarray(cos_m), jnp.asarray(sin_m)
-
-
-def rfft_matmul(x, axis=-1):
-    """np.fft.rfft equivalent via two MXU matmuls; axis must be last."""
-    assert axis in (-1, x.ndim - 1)
-    nbin = x.shape[-1]
-    cos_m, sin_m = _dft_mats(nbin, str(x.dtype))
-    re = jnp.matmul(x, cos_m, preferred_element_type=x.dtype,
-                    precision=jax.lax.Precision.HIGHEST)
-    im = -jnp.matmul(x, sin_m, preferred_element_type=x.dtype,
-                    precision=jax.lax.Precision.HIGHEST)
-    return re + 1j * im
-
-
-def irfft_matmul(X, n=None, axis=-1):
-    """np.fft.irfft equivalent via MXU matmuls; axis must be last."""
-    assert axis in (-1, X.ndim - 1)
-    nharm = X.shape[-1]
-    nbin = n if n is not None else 2 * (nharm - 1)
-    re = X.real
-    im = X.imag
-    rdtype = str(re.dtype)
-    cos_m, sin_m = _dft_mats(nbin, rdtype)  # (nbin, nharm)
-    # irfft: x_j = (1/N) [X_0 + 2 sum_{0<k<N/2} (Re cos + Im(-sin)) + X_{N/2} term]
-    w = jnp.ones(nharm, dtype=re.dtype).at[0].set(0.5)
-    if nbin % 2 == 0:
-        w = w.at[-1].set(0.5)
-    re_w = re * w
-    im_w = im * w
-    x = jnp.matmul(re_w, cos_m.T, preferred_element_type=re.dtype,
-                   precision=jax.lax.Precision.HIGHEST) - \
-        jnp.matmul(im_w, sin_m.T, preferred_element_type=re.dtype,
-                   precision=jax.lax.Precision.HIGHEST)
-    return x * (2.0 / nbin)
-
-
-def _dft_precision(precision=None):
-    """Matmul precision for the DFT: HIGHEST by default; PP_DFT_PRECISION
-    = highest|high|default overrides (trace-time).  On TPU v5e, HIGHEST
-    f32 runs ~28 TFLOP/s (6-pass bf16) vs ~60 at HIGH and ~119 at
-    DEFAULT; HIGH keeps ~2^-21 relative accuracy, enough for the 1e-9
-    phase-parity budget (measured in PERF.md)."""
-    if precision is not None:
-        if isinstance(precision, str):
-            return {"highest": jax.lax.Precision.HIGHEST,
-                    "high": jax.lax.Precision.HIGH,
-                    "default": jax.lax.Precision.DEFAULT}[precision.lower()]
-        return precision
-    import os
-    env = os.environ.get("PP_DFT_PRECISION", "highest").lower()
-    return {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT}[env]
-
-
-def use_matmul_fft():
-    """Trace-time backend dispatch: the TPU backend implements neither
-    complex arithmetic nor the FFT custom-call (UNIMPLEMENTED), and its
-    FFT lowering used to compile for minutes anyway — every transform
-    there runs as split-real MXU DFT matmuls."""
-    return jax.default_backend() == "tpu"
-
-
-def complex_device():
-    """Context manager placing eager complex-arithmetic ops on a device
-    that implements them (CPU when the default backend is the complex-
-    free TPU).  For host-prep APIs whose *output* is a complex spectrum
-    (analytic FTs, instrumental responses); the device hot paths use the
-    split-real forms instead."""
-    import contextlib
-    if use_matmul_fft():
-        return jax.default_device(jax.devices("cpu")[0])
-    return contextlib.nullcontext()
-
-
-def rfft_ri(x, precision=None):
-    """np.fft.rfft along the last axis as a split (real, imag) pair,
-    backend-dispatched (matmul DFT on TPU, jnp.fft elsewhere)."""
-    if use_matmul_fft():
-        return rfft_matmul_ri(x, precision=precision)
+def rfft_ri(x):
+    """np.fft.rfft along the last axis as a split (real, imag) pair."""
     X = jnp.fft.rfft(x, axis=-1)
     return X.real, X.imag
 
 
-def irfft_ri(re, im, n=None, precision=None):
-    """np.fft.irfft of a split-real spectrum, backend-dispatched."""
-    if use_matmul_fft():
-        return irfft_matmul_ri(re, im, n=n, precision=precision)
+def irfft_ri(re, im, n=None):
+    """np.fft.irfft of a split-real spectrum along the last axis."""
     return jnp.fft.irfft(re + 1j * im, n=n, axis=-1)
 
 
-def irfft_matmul_ri(re, im, n=None, axis=-1, precision=None):
-    """irfft via MXU matmuls from a split (real, imag) spectrum."""
-    assert axis in (-1, re.ndim - 1)
-    nharm = re.shape[-1]
-    nbin = n if n is not None else 2 * (nharm - 1)
-    prec = _dft_precision(precision)
-    cos_m, sin_m = _dft_mats(nbin, str(re.dtype))  # (nbin, nharm)
-    w = jnp.ones(nharm, dtype=re.dtype).at[0].set(0.5)
-    if nbin % 2 == 0:
-        w = w.at[-1].set(0.5)
-    x = jnp.matmul(re * w, cos_m.T, preferred_element_type=re.dtype,
-                   precision=prec) - \
-        jnp.matmul(im * w, sin_m.T, preferred_element_type=re.dtype,
-                   precision=prec)
-    return x * (2.0 / nbin)
-
-
-def rotate_ri(x, phis, precision=None):
-    """irfft(rfft(x) * e^{+2 pi i k phis}) without complex arrays.
+def rotate_ri(x, phis):
+    """irfft(rfft(x) * e^{+2 pi i k phis}) along the last axis.
 
     x: (..., nbin) real; phis broadcastable to x.shape[:-1] (rotations).
-    The split-real core of every rotation/dedispersion kernel — the only
-    form that runs on the complex-free TPU backend.
+    The core of every rotation/dedispersion op.
     """
     x = jnp.asarray(x)
     nbin = x.shape[-1]
-    re, im = rfft_ri(x, precision=precision)
+    re, im = rfft_ri(x)
     k = jnp.arange(re.shape[-1], dtype=re.dtype)
     ang = 2.0 * jnp.pi * jnp.asarray(phis, re.dtype)[..., None] * k
     c, s = jnp.cos(ang), jnp.sin(ang)
-    return irfft_ri(re * c - im * s, re * s + im * c, n=nbin,
-                    precision=precision)
-
-
-def rfft_matmul_ri(x, axis=-1, precision=None):
-    """rfft via MXU matmuls, returned as a (real, imag) pair.
-
-    Split-real form: no complex arrays are materialized (TPU-friendly
-    layouts for the downstream split-real fit setup).
-    """
-    assert axis in (-1, x.ndim - 1)
-    nbin = x.shape[-1]
-    cos_m, sin_m = _dft_mats(nbin, str(x.dtype))
-    prec = _dft_precision(precision)
-    re = jnp.matmul(x, cos_m, preferred_element_type=x.dtype,
-                    precision=prec)
-    im = -jnp.matmul(x, sin_m, preferred_element_type=x.dtype,
-                     precision=prec)
-    return re, im
+    return irfft_ri(re * c - im * s, re * s + im * c, n=nbin)

@@ -42,8 +42,7 @@ def _wofz_upper(zr, zi):
     """Faddeeva w(z) = e^{-z^2} erfc(-iz) for Im(z) >= 0, real arithmetic.
 
     Weideman's rational approximation; ~1e-14 accurate over the upper
-    half-plane.  Returns (Re w, Im w).  Real/imag decomposition keeps the
-    evaluation TPU-friendly (no complex128).
+    half-plane.  Returns (Re w, Im w), in real arithmetic.
     """
     L = _WEIDEMAN_L
     # iz = -zi + i zr ; L - iz = L + zi - i zr
@@ -135,22 +134,6 @@ def gaussian_profile(nbin, loc, wid, norm=False, abs_wid=False, zeroout=True):
     return jnp.where(bad, jnp.zeros(nbin, dtype=dtype), vals)
 
 
-
-
-def _on_complex_device(fn):
-    """Run an eager complex-output FT helper on a complex-capable device
-    (CPU when the default backend is the complex-free TPU backend)."""
-    import functools
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        from pulseportraiture_tpu.ops.fourier import complex_device
-        with complex_device():
-            return fn(*args, **kwargs)
-    return wrapper
-
-
-@_on_complex_device
 def gaussian_profile_FT(nbin, loc, wid, amp):
     """Analytic FT of a Gaussian profile sampled at nbin//2 + 1 harmonics.
 
@@ -177,7 +160,6 @@ def gaussian_profile_FT(nbin, loc, wid, amp):
     return jnp.where(wid <= 0.0, jnp.zeros(nharm, dtype=out.dtype), out)
 
 
-@_on_complex_device
 def gen_gaussian_profile_FT(params, nbin, applied_scattering=True):
     """FT of a DC + ngauss-Gaussian (+ optional scattering) profile.
 
@@ -198,7 +180,6 @@ def gen_gaussian_profile_FT(params, nbin, applied_scattering=True):
     return out
 
 
-@_on_complex_device
 def instrumental_response_FT(nbin, wid=0.0, irf_type="rect"):
     """FT of the instrumental response (rect sinc or Gaussian).
 
@@ -215,7 +196,6 @@ def instrumental_response_FT(nbin, wid=0.0, irf_type="rect"):
     return jnp.where(wid == 0.0, jnp.ones(nharm, dtype=out.dtype), out)
 
 
-@_on_complex_device
 def instrumental_response_port_FT(nbin, freqs, DM=0.0, P=1.0, wids=(),
                                   irf_types=()):
     """Combined instrumental response FT, (nchan, nharm).

@@ -25,10 +25,8 @@ def get_noise_PS(data, frac=4, chans=False):
     the raveled data.  Reference: pplib.py:2227-2253.
 
     Concrete (non-traced) inputs are estimated on the host in float64
-    (numpy rfft): this is a load-time estimator, and the raveled-data
-    transform length (nsub*nchan*nbin) is far beyond any DFT-matmul
-    matrix, while the TPU backend implements no FFT at all.  Traced
-    inputs use the backend-dispatched split-real transform.
+    (numpy rfft): this is a load-time estimator.  Traced inputs use
+    jnp.fft.
     """
     import jax
 

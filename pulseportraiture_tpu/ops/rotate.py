@@ -7,11 +7,8 @@ identical to PSRCHIVE's arch.dedisperse() (pplib.py:2436-2437).
 
 Unlike the reference's per-channel Python loops (pplib.py:2450-2459), the
 phase ramp is one broadcasted trig array and the whole op batches/vmaps
-trivially over any leading dimensions.  All transforms go through the
-split-real core ops.fourier.rotate_ri: no complex arrays exist on the
-device path, which is required on the TPU backend (complex arithmetic and
-the FFT custom-call are UNIMPLEMENTED there) and faster everywhere else
-at these sizes.
+trivially over any leading dimensions.  All transforms go through
+ops.fourier.rotate_ri.
 """
 
 from __future__ import annotations
@@ -143,7 +140,7 @@ def rotate_portrait_np(port, phase=0.0, DM=0.0, P=None, freqs=None,
     """Host-side float64 mirror of rotate_portrait (numpy).
 
     Used by the pipelines for precision-critical base rotations: on the
-    float32 TPU path the fit solves for a small residual (phi, dDM)
+    float32 device path the fit solves for a small residual (phi, dDM)
     around a baseline dispersion that is removed here at full float64
     precision, so phases of many turns never enter the f32 graph.
     """

@@ -22,8 +22,8 @@ def scattering_times(tau, alpha, freqs, nu_tau):
 
 
 def scattering_profile_FT_ri(tau, nbin, dtype=None):
-    """scattering_profile_FT as a split (real, imag) pair — the device
-    form (the TPU backend implements no complex arithmetic).
+    """scattering_profile_FT as a split (real, imag) pair — the form the
+    fitters' real-arithmetic reductions take.
     B = 1/(1 + i c tau), c = 2 pi k: Br = 1/(1+c^2 tau^2),
     Bi = -c tau/(1+c^2 tau^2)."""
     nharm = nbin // 2 + 1
@@ -35,22 +35,6 @@ def scattering_profile_FT_ri(tau, nbin, dtype=None):
     return 1.0 / den, -ct / den
 
 
-
-
-def _on_complex_device(fn):
-    """Run an eager complex-output FT helper on a complex-capable device
-    (CPU when the default backend is the complex-free TPU backend)."""
-    import functools
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        from pulseportraiture_tpu.ops.fourier import complex_device
-        with complex_device():
-            return fn(*args, **kwargs)
-    return wrapper
-
-
-@_on_complex_device
 def scattering_profile_FT(tau, nbin):
     """Analytic FT of the one-sided exponential kernel, nharm samples.
 
@@ -74,7 +58,6 @@ def scattering_portrait_FT_ri(taus, nbin):
     return 1.0 / den, -ct / den
 
 
-@_on_complex_device
 def scattering_portrait_FT(taus, nbin):
     """Per-channel stack of scattering_profile_FT: (..., nchan, nharm).
 

@@ -1,5 +1,4 @@
 """Device-mesh sharding for batched wideband fits."""
 
 from pulseportraiture_tpu.parallel.mesh import (
-    make_mesh, fit_portrait_full_sharded, fit_portrait_full_sharded_ct,
-    fit_portrait_full_sharded_direct)
+    make_mesh, fit_portrait_full_sharded, fit_portrait_full_sharded_direct)

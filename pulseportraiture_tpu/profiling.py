@@ -2,7 +2,7 @@
 
 The reference only stamps wall-clock durations per fit (pplib.py:2084,
 pptoaslib.py:1011); every fitter here records the same `duration` and
-`nfeval` bookkeeping, and this module adds the TPU-native layer: JAX
+`nfeval` bookkeeping, and this module adds the device layer: JAX
 profiler traces viewable in TensorBoard/Perfetto, plus a lightweight
 section timer.
 

@@ -89,8 +89,8 @@ def _eval_model_portrait(modelfile, phases, freqs, P, ft=False):
 
 def _host_ramp(phis, nharm):
     """exp(2j*pi*phis[:, None]*k) in f64 with mod-1 argument reduction
-    (glibc trig's large-argument path is ~20x slower on this host; the
-    reduction error is <= k*eps ~ 1e-11 turns at k=1024)."""
+    (glibc trig's large-argument path is far slower; the reduction
+    error is <= k*eps ~ 1e-11 turns at k=1024)."""
     k = np.arange(nharm)
     theta = np.mod(phis[:, None] * k, 1.0)
     theta *= 2.0 * np.pi

@@ -8,8 +8,8 @@ Times the two model builders on an averaged archive:
     (ppgauss.py:19-372)
 
 Usage: python scripts/model_build_bench.py [--nchan 4096] [--nbin 2048]
-          [--platform cpu] [--archive path.fits]
-Prints one JSON line per builder.
+          [--archive path.fits]
+Needs an accelerator.  Prints one JSON line per builder.
 """
 
 import argparse
@@ -25,7 +25,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(
 ap = argparse.ArgumentParser()
 ap.add_argument("--nchan", type=int, default=4096)
 ap.add_argument("--nbin", type=int, default=2048)
-ap.add_argument("--platform", default=None)
 ap.add_argument("--archive", default=None,
                 help="use this averaged archive instead of synthesizing")
 ap.add_argument("--gauss", action="store_true",
@@ -34,14 +33,14 @@ args = ap.parse_args()
 
 import jax
 
-if args.platform:
-    jax.config.update("jax_platforms", args.platform)
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/pp_jax_compilation_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from pulseportraiture_tpu.utils import (card_report, require_accelerator,
+                                        use_compile_cache)
+
+dev = require_accelerator()
+use_compile_cache()
+print(card_report(), flush=True)
+DEVICE = {"platform": dev.platform, "kind": dev.device_kind,
+          "count": len(jax.devices())}
 
 import numpy as np
 
@@ -72,7 +71,6 @@ else:
     print(f"synthesized averaged archive in {time.time() - t0:.1f}s",
           flush=True)
 
-print("backend:", jax.default_backend(), flush=True)
 
 # ---- ppspline ----
 dp = DataPortrait(path, quiet=True)
@@ -84,8 +82,8 @@ dp.write_model(path + ".spl", quiet=True)
 print(json.dumps({
     "metric": f"ppspline model build wall time ({args.nchan}ch x "
               f"{args.nbin}bin)",
-    "value": round(t_spline, 2), "unit": "s",
-    "extra": {"backend": jax.default_backend()}}), flush=True)
+    "value": round(t_spline, 2), "unit": "s", "device": DEVICE}),
+    flush=True)
 
 # ---- ppgauss (one iteration) ----
 if args.gauss:
@@ -97,5 +95,5 @@ if args.gauss:
     print(json.dumps({
         "metric": f"ppgauss model build wall time, 1 iter "
                   f"({args.nchan}ch x {args.nbin}bin)",
-        "value": round(t_gauss, 2), "unit": "s",
-        "extra": {"backend": jax.default_backend()}}), flush=True)
+        "value": round(t_gauss, 2), "unit": "s", "device": DEVICE}),
+        flush=True)

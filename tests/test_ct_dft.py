@@ -1,116 +1,118 @@
-"""Fused CT-DFT setup kernel (ops/ct_dft.py) and the permuted-layout
-moments path: numerics vs numpy, batched grid, kvec moments."""
+"""Fit setups against a float64 NumPy reference: the natural-order rFFT
+cross-spectrum (fitters/stats.py), the capped direct-DFT setup and the
+CT-permuted layout (ops/ct_dft.py), and the fits built on them."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pulseportraiture_tpu.ops.ct_dft import (ct_geometry, ct_kvec,
-                                             ct_setup, ct_supported,
+from pulseportraiture_tpu.fitters import reference, stats
+from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft, ct_geometry,
+                                             ct_kvec, ct_perm_np,
+                                             ct_supported,
+                                             direct_capped_setup,
                                              permute_spectrum,
                                              unpermute_spectrum)
 
 
+def _np_cross(x, m, f0_fact=False, scale=None):
+    return reference.cross_spectrum(x, m, f0_fact=f0_fact, scale=scale)
+
+
+def _relmax(a, b, scale=None):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    s = np.abs(b).max() if scale is None else scale
+    return np.abs(a - b).max() / (s + 1e-300)
+
+
+def _capped_problem(nbin=512, nchan=24, width=0.05, seed=17):
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    xg = (np.arange(nbin) + 0.5) / nbin
+    prof = np.exp(-0.5 * ((xg - 0.4) / width) ** 2)
+    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
+    mf64 = np.fft.rfft(model64, axis=-1)
+    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
+    assert mh is not None and mh % 8 == 0
+    return np.random.default_rng(seed), freqs, model64, mr, mi, mh
+
+
 @pytest.mark.parametrize("nbin", [256, 1024, 2048, 4096])
-def test_ct_setup_matches_numpy(nbin):
+def test_natural_setup_matches_numpy(nbin):
+    """make_setup's f32 Gr/Gi/sd equal the f64 NumPy cross-spectrum to
+    f32 rounding at every production nbin."""
     rng = np.random.default_rng(0)
     nchan = 16
     x = rng.normal(0, 1, (nchan, nbin)).astype(np.float32)
     m = rng.normal(0, 1, (nchan, nbin)).astype(np.float32)
-    mfft = np.fft.rfft(m, axis=-1)
-    mr = mfft.real.astype(np.float32)
-    mi = mfft.imag.astype(np.float32)
-    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin)
-    Grp, Gip, sd = ct_setup(jnp.asarray(x), mrp, mip, f0_fact=False,
-                            interpret=True)
-    dfft = np.fft.rfft(x, axis=-1)
-    dfft[:, 0] = 0.0
-    G = dfft * np.conj(mfft)
-    Grn, Gin = unpermute_spectrum(np.asarray(Grp), np.asarray(Gip), nbin)
+    s = stats.make_setup(jnp.asarray(x), jnp.asarray(m),
+                         jnp.full(nchan, 1.0, jnp.float32), 0.003,
+                         jnp.linspace(1100.0, 1900.0, nchan), 1500.0,
+                         1500.0, 1500.0)
+    G, sd = _np_cross(x, m)
     scale = np.abs(G).max()
-    assert np.abs(Grn - G.real).max() / scale < 2e-6
-    assert np.abs(Gin - G.imag).max() / scale < 2e-6
-    sd_ref = (np.abs(dfft) ** 2).sum(-1)
-    assert np.abs(np.asarray(sd) - sd_ref).max() / sd_ref.max() < 2e-6
+    assert _relmax(s.Gr, G.real, scale) < 2e-6
+    assert _relmax(s.Gi, G.imag, scale) < 2e-6
+    w = float(np.asarray(s.w)[0])
+    assert _relmax(np.asarray(s.sd_chan) / w, sd) < 2e-6
+    M2 = np.abs(np.fft.rfft(m.astype(np.float64), axis=-1)) ** 2
+    M2[:, 0] = 0.0
+    assert _relmax(s.M2, M2) < 2e-6
 
 
-def test_ct_setup_batched_shares_model(nbin=512):
+def test_setup_batched_shares_model(nbin=512):
+    """The shared-model batched setup (one model_ft, vmapped make_setup)
+    equals the per-item setup with the model passed in time domain."""
     rng = np.random.default_rng(1)
     B, nchan = 3, 8
     x = rng.normal(0, 1, (B, nchan, nbin)).astype(np.float32)
     m = rng.normal(0, 1, (nchan, nbin)).astype(np.float32)
-    mfft = np.fft.rfft(m, axis=-1)
-    mrp, mip = permute_spectrum(jnp.asarray(mfft.real.astype(np.float32)),
-                                jnp.asarray(mfft.imag.astype(np.float32)),
-                                nbin)
-    Grb, Gib, sdb = ct_setup(jnp.asarray(x), mrp, mip, f0_fact=False,
-                             interpret=True)
+    errs = jnp.full(nchan, 0.5, jnp.float32)
+    fr = jnp.linspace(1100.0, 1900.0, nchan)
+    mft = stats.model_ft(jnp.asarray(m))
+    Gb = jax.vmap(lambda d: stats.make_setup(
+        d, None, errs, 0.003, fr, 1500.0, 1500.0, 1500.0,
+        model_ft_ri=mft).Gr)(jnp.asarray(x))
     for b in range(B):
-        Gr1, Gi1, sd1 = ct_setup(jnp.asarray(x[b]), mrp, mip,
-                                 f0_fact=False, interpret=True)
-        np.testing.assert_allclose(np.asarray(Grb[b]), np.asarray(Gr1),
-                                   rtol=0, atol=0)
-        np.testing.assert_allclose(np.asarray(sdb[b]), np.asarray(sd1),
-                                   rtol=0, atol=0)
+        s1 = stats.make_setup(jnp.asarray(x[b]), jnp.asarray(m), errs,
+                              0.003, fr, 1500.0, 1500.0, 1500.0)
+        np.testing.assert_allclose(np.asarray(Gb[b]), np.asarray(s1.Gr),
+                                   rtol=0, atol=1e-5)
 
 
-def test_kvec_moments_match_natural_order(nbin=512):
-    from pulseportraiture_tpu.ops.pallas_moments import (
-        phase_moments, phase_moments_reference)
+def _moments_in_order(setup, params, perm, scattering):
+    """stats._moments on a setup whose spectra are gathered into `perm`
+    order (kvec = perm), or natural order when perm is None."""
+    if perm is not None:
+        setup = setup._replace(
+            Gr=setup.Gr[..., perm], Gi=setup.Gi[..., perm],
+            M2=setup.M2[..., perm], S0=jnp.sum(setup.M2, -1),
+            kvec=jnp.asarray(perm, setup.Gr.dtype))
+    return stats._moments(params, setup, True, order=2,
+                          scattering=scattering)
 
+
+@pytest.mark.parametrize("scattering", [False, True])
+def test_kvec_moments_match_natural_order(scattering, nbin=512):
+    """Every harmonic reduction is order-free given kvec: the moments
+    over CT-permuted spectra equal the natural-order moments."""
     rng = np.random.default_rng(2)
     nchan = 8
-    nharm = nbin // 2 + 1
-    NQ, M, NH = ct_geometry(nbin)
-    Gr = rng.normal(0, 1, (nchan, nharm)).astype(np.float32)
-    Gi = rng.normal(0, 1, (nchan, nharm)).astype(np.float32)
-    phis = rng.uniform(-0.4, 0.4, nchan).astype(np.float32)
-    C0, Cp0, Cpp0 = phase_moments_reference(
-        jnp.asarray(phis), jnp.asarray(Gr), jnp.asarray(Gi))
-    Grp, Gip = permute_spectrum(jnp.asarray(Gr), jnp.asarray(Gi), nbin)
-    kv = jnp.asarray(ct_kvec(nbin))
-    # jnp reference with kvec
-    C1, Cp1, Cpp1 = phase_moments_reference(jnp.asarray(phis), Grp, Gip,
-                                            kvec=kv)
-    np.testing.assert_allclose(np.asarray(C1), np.asarray(C0),
-                               rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(Cpp1), np.asarray(Cpp0),
-                               rtol=2e-5, atol=1e-2)
-    # Pallas kvec kernel (interpret)
-    C2, Cp2, Cpp2 = phase_moments(jnp.asarray(phis), Grp, Gip,
-                                  interpret=True, kvec=kv)
-    np.testing.assert_allclose(np.asarray(C2), np.asarray(C0),
-                               rtol=2e-4, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(Cp2), np.asarray(Cp0),
-                               rtol=2e-4, atol=2e-2)
-    np.testing.assert_allclose(np.asarray(Cpp2), np.asarray(Cpp0),
-                               rtol=2e-4, atol=1e-1)
-
-
-def test_kvec_scattering_moments_match(nbin=256):
-    from pulseportraiture_tpu.ops.pallas_moments import (
-        _scat_terms_ref, scattering_moments)
-
-    rng = np.random.default_rng(3)
-    nchan = 8
-    nharm = nbin // 2 + 1
-    Gr = rng.normal(0, 1, (nchan, nharm)).astype(np.float32)
-    Gi = rng.normal(0, 1, (nchan, nharm)).astype(np.float32)
-    M2 = rng.uniform(0.5, 1.0, (nchan, nharm)).astype(np.float32)
-    phis = rng.uniform(-0.4, 0.4, nchan).astype(np.float32)
-    taus = rng.uniform(0, 2e-3, nchan).astype(np.float32)
-    k = jnp.arange(nharm, dtype=jnp.float32)
-    ref = _scat_terms_ref(jnp.asarray(phis), jnp.asarray(taus),
-                          jnp.asarray(Gr), jnp.asarray(Gi),
-                          jnp.asarray(M2), k)
-    Grp, Gip = permute_spectrum(jnp.asarray(Gr), jnp.asarray(Gi), nbin)
-    M2p, _ = permute_spectrum(jnp.asarray(M2), jnp.asarray(M2), nbin)
-    kv = jnp.asarray(ct_kvec(nbin))
-    got = scattering_moments(jnp.asarray(phis), jnp.asarray(taus), Grp,
-                             Gip, M2p, interpret=True, kvec=kv)
-    for a, b in zip(got, ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=3e-4, atol=2e-2)
+    x = rng.normal(0, 1, (nchan, nbin))
+    m = rng.normal(0, 1, (nchan, nbin))
+    setup = stats.make_setup(jnp.asarray(x), jnp.asarray(m),
+                             jnp.full(nchan, 1.0), 0.003,
+                             jnp.linspace(1100.0, 1900.0, nchan), 1500.0,
+                             1500.0, 1500.0)
+    params = jnp.asarray([0.13, 2e-3, 0.0, -3.0, -4.0])
+    nat = _moments_in_order(setup, params, None, scattering)
+    per = _moments_in_order(setup, params, ct_perm_np(nbin), scattering)
+    for key in ("C", "S", "Cp", "Cpp", "Rf", "S1", "If1", "Rg", "S2"):
+        np.testing.assert_allclose(np.asarray(per[key]),
+                                   np.asarray(nat[key]), rtol=1e-9,
+                                   atol=1e-9 * np.abs(
+                                       np.asarray(nat[key])).max(),
+                                   err_msg=key)
 
 
 def test_ct_supported_gates():
@@ -124,144 +126,172 @@ def test_ct_supported_gates():
     # the layout is a permutation of 0..nbin/2 with Nyquist last
     assert int(kv[-1]) == 1024
     assert sorted(int(v) for v in kv) == list(range(1025))
+    re = np.arange(1025.0)
+    np.testing.assert_array_equal(
+        unpermute_spectrum(*permute_spectrum(re, -re, 2048), 2048)[0], re)
 
 
-def test_ct_setup_fused_seed_outputs(nbin=512):
-    """ct_setup(w=...) accumulates sum_c w_c * G across channel-block
-    grid steps (the fused brute-seed input; fitters seed_phase path)."""
-    from pulseportraiture_tpu.fitters.stats import model_ft
-    from pulseportraiture_tpu.ops.ct_dft import ct_perm_np, ct_setup
+@pytest.mark.parametrize("f0_fact,with_scale", [(False, False),
+                                                (True, False),
+                                                (False, True)])
+def test_direct_capped_setup_matches_numpy(f0_fact, with_scale, nbin=512):
+    """direct_capped_setup reproduces the f64 NumPy cross-spectrum at the
+    kept harmonics, in CT-permuted order, with the Parseval sd over ALL
+    harmonics, for every ingest variant — batched and squeezed."""
+    rng, freqs, model64, mr, mi, mh = _capped_problem()
+    B, nchan = 3, len(freqs)
+    if f0_fact:
+        mf = np.fft.rfft(model64, axis=-1)
+        mr, mi = mf.real.astype(np.float32), mf.imag.astype(np.float32)
+    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
+                                mharm=mh)
+    scale = None
+    if with_scale:
+        x = rng.integers(-3000, 3000, (B, nchan, nbin), dtype=np.int16)
+        scale = rng.uniform(1e-4, 5e-4, (B, nchan)).astype(np.float32)
+    else:
+        x = (model64[None] +
+             rng.normal(0, 0.1, (B, nchan, nbin))).astype(np.float32)
+    G, sd = _np_cross(x, model64, f0_fact=f0_fact, scale=scale)
+    kv = ct_perm_np(nbin, mh)
+    Gt = G[..., kv]
+    for sl in (slice(None), 0):
+        out = direct_capped_setup(
+            jnp.asarray(x[sl]), mrp, mip, mharm=mh,
+            dft_precision="highest", f0_fact=f0_fact,
+            scale=None if scale is None else jnp.asarray(scale[sl]))
+        Gr, Gi, sdo = [np.asarray(a) for a in out]
+        assert Gr.shape == Gt[sl].shape and sdo.shape == sd[sl].shape
+        gs = np.abs(Gt).max()
+        assert _relmax(Gr, Gt[sl].real, gs) < 2e-5
+        assert _relmax(Gi, Gt[sl].imag, gs) < 2e-5
+        assert _relmax(sdo, sd[sl]) < 2e-5
 
-    rng = np.random.default_rng(7)
-    B, nchan = 3, 160          # not a multiple of the channel block
+
+def test_direct_capped_seed_outputs(nbin=512):
+    """direct_capped_setup(w=...) returns the weighted band sums
+    sum_c w_c G_c (the brute-seed input) against NumPy; zero-weight
+    channels contribute nothing and the plain outputs are unchanged."""
+    rng, freqs, model64, mr, mi, mh = _capped_problem(seed=7)
+    B, nchan = 3, len(freqs)
     x = rng.normal(0, 1, (B, nchan, nbin)).astype(np.float32)
-    model = rng.normal(0, 1, (nchan, nbin)).astype(np.float32)
     w = rng.uniform(0.0, 2.0, (B, nchan)).astype(np.float32)
-    w[:, 5] = 0.0              # zero-weight channel must not contribute
-    mr, mi = model_ft(jnp.asarray(model), fft_matmul=True,
-                      dft_precision="highest")
-    mrp, mip = permute_spectrum(mr, mi, nbin)
-    out = ct_setup(jnp.asarray(x), mrp, mip, f0_fact=False,
-                   dft_precision="highest", interpret=True,
-                   w=jnp.asarray(w))
-    Gr, Gi, sd, gsr, gsi = out
-    perm = ct_perm_np(nbin)
-    D = np.fft.rfft(x.astype(np.float64), axis=-1)
-    M = np.fft.rfft(model.astype(np.float64), axis=-1)
-    G = D * np.conj(M)
-    G[..., 0] = 0.0
-    Gt = G[..., perm]
+    w[:, 5] = 0.0
+    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
+                                mharm=mh)
+    Gr, Gi, sd, gsr, gsi = direct_capped_setup(
+        jnp.asarray(x), mrp, mip, mharm=mh, dft_precision="highest",
+        w=jnp.asarray(w))
+    G, _ = _np_cross(x, model64)
+    Gt = G[..., ct_perm_np(nbin, mh)]
     gsr_t = (w[..., None] * Gt.real).sum(axis=1)
     gsi_t = (w[..., None] * Gt.imag).sum(axis=1)
     s = np.abs(gsr_t).max()
-    assert np.abs(np.asarray(gsr) - gsr_t).max() / s < 1e-5
-    assert np.abs(np.asarray(gsi) - gsi_t).max() / s < 1e-5
-    # the 3 plain outputs are unchanged by seed mode
-    Gr2, Gi2, sd2 = ct_setup(jnp.asarray(x), mrp, mip, f0_fact=False,
-                             dft_precision="highest", interpret=True)
+    assert _relmax(gsr, gsr_t, s) < 1e-5
+    assert _relmax(gsi, gsi_t, s) < 1e-5
+    Gr2, _, sd2 = direct_capped_setup(jnp.asarray(x), mrp, mip, mharm=mh,
+                                      dft_precision="highest")
     np.testing.assert_array_equal(np.asarray(Gr), np.asarray(Gr2))
     np.testing.assert_array_equal(np.asarray(sd), np.asarray(sd2))
 
 
-def test_ct_setup_i2_scale_ingest(nbin=512):
-    """int16-native ingest: ct_setup(x_i2, scale=...) equals the f32
-    path on scale*x up to f32 rounding; per-channel offsets never enter
-    (DC is zeroed under f0_fact falsy)."""
-    rng = np.random.default_rng(9)
-    B, nchan = 2, 24
-    xi = rng.integers(-32768, 32767, (B, nchan, nbin),
-                      dtype=np.int16)
+def test_direct_capped_i2_scale_ingest(nbin=512):
+    """int16-native ingest: direct_capped_setup(x_i2, scale=...) equals
+    the f32 path on scale*x up to f32 rounding; per-channel offsets never
+    enter (DC is zeroed under f0_fact falsy)."""
+    rng, freqs, model64, mr, mi, mh = _capped_problem(seed=9)
+    B, nchan = 2, len(freqs)
+    xi = rng.integers(-32768, 32767, (B, nchan, nbin), dtype=np.int16)
     scl = rng.uniform(1e-4, 5e-4, (B, nchan)).astype(np.float32)
-    model = rng.normal(0, 1, (nchan, nbin)).astype(np.float32)
-    mfft = np.fft.rfft(model, axis=-1)
-    mrp, mip = permute_spectrum(jnp.asarray(mfft.real.astype(np.float32)),
-                                jnp.asarray(mfft.imag.astype(np.float32)),
-                                nbin)
-    w = np.ones((B, nchan), np.float32)
-    out_i2 = ct_setup(jnp.asarray(xi), mrp, mip, f0_fact=False,
-                      interpret=True, w=jnp.asarray(w),
-                      scale=jnp.asarray(scl))
+    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
+                                mharm=mh)
+    w = jnp.ones((B, nchan), jnp.float32)
+    kw = dict(mharm=mh, dft_precision="highest", w=w)
+    out_i2 = direct_capped_setup(jnp.asarray(xi), mrp, mip,
+                                 scale=jnp.asarray(scl), **kw)
     xf = xi.astype(np.float32) * scl[..., None]
-    out_f32 = ct_setup(jnp.asarray(xf), mrp, mip, f0_fact=False,
-                       interpret=True, w=jnp.asarray(w))
+    out_f32 = direct_capped_setup(jnp.asarray(xf), mrp, mip, **kw)
     for a, b in zip(out_i2, out_f32):
-        a, b = np.asarray(a), np.asarray(b)
-        s = np.abs(b).max() + 1e-30
-        assert np.abs(a - b).max() / s < 2e-6
+        assert _relmax(a, b) < 2e-6
 
 
 def test_model_band_harmonic_cap_exact(nbin=256):
-    """Capped CT layout (ct_geometry mharm): kept positions equal the
-    full layout's (to matmul-rounding), dropped positions are exactly
-    zero in the full layout (model zero there), sd keeps the FULL data
-    power via Parseval, and the seed cross-spectrum matches."""
-    from pulseportraiture_tpu.ops.ct_dft import ct_perm_np, suggest_mharm
+    """Capped layout: the kept positions hold exactly the harmonics
+    k < NQ*mharm of the NumPy cross-spectrum, every dropped harmonic is
+    zero in the model (so contributes nothing), and sd keeps the FULL
+    data power."""
+    from pulseportraiture_tpu.ops.ct_dft import suggest_mharm
 
     rng = np.random.default_rng(11)
     B, nchan = 3, 24
-    NQ, M0, NH = ct_geometry(nbin)
+    NQ, M0, _ = ct_geometry(nbin)
     x = rng.normal(0, 1, (B, nchan, nbin)).astype(np.float32)
     prof = np.exp(-0.5 * ((np.arange(nbin) / nbin - 0.4) / 0.05) ** 2)
     m = (prof[None, :] * rng.uniform(0.5, 2, (nchan, 1)))
     mf = np.fft.rfft(m, axis=-1)
     mf[:, 25:] = 0.0                       # band-limited template
-    mr = mf.real.astype(np.float32)
-    mi = mf.imag.astype(np.float32)
-    mh = suggest_mharm(mr, mi, nbin)
+    mf[:, 0] = 0.0
+    mh = suggest_mharm(mf.real, mf.imag, nbin)
     assert mh is not None and mh * NQ >= 25 and mh < M0
-    w = rng.uniform(0.5, 1.5, (B, nchan)).astype(np.float32)
-
-    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin)
-    mrp_c, mip_c = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi),
-                                    nbin, mharm=mh)
-    full = ct_setup(jnp.asarray(x), mrp, mip, f0_fact=False,
-                    interpret=True, w=jnp.asarray(w))
-    cap = ct_setup(jnp.asarray(x), mrp_c, mip_c, f0_fact=False,
-                   interpret=True, w=jnp.asarray(w), mharm=mh)
-    Grf, Gif, sdf, gsrf, gsif = [np.asarray(a) for a in full]
-    Grc, Gic, sdc, gsrc, gsic = [np.asarray(a) for a in cap]
-    kv_f = ct_perm_np(nbin)
-    kv_c = ct_perm_np(nbin, mh)
-    pos_f = {k: i for i, k in enumerate(kv_f)}
-    sel = [pos_f[k] for k in kv_c]
-    s = np.abs(Grf).max()
-    assert np.abs(Grc - Grf[:, :, sel]).max() / s < 1e-6
-    assert np.abs(Gic - Gif[:, :, sel]).max() / s < 1e-6
-    # every dropped position is exactly zero in the full layout
-    assert np.abs(np.delete(Grf, sel, axis=2)).max() == 0.0
-    assert np.abs(np.delete(Gif, sel, axis=2)).max() == 0.0
-    # Parseval sd equals the direct spectral sum (full data power)
-    assert np.abs(sdc - sdf).max() / np.abs(sdf).max() < 1e-5
-    ss = np.abs(gsrf).max()
-    assert np.abs(gsrc - gsrf[:, sel]).max() / ss < 1e-5
-    assert np.abs(gsic - gsif[:, sel]).max() / ss < 1e-5
+    mrp, mip = permute_spectrum(jnp.asarray(mf.real, jnp.float32),
+                                jnp.asarray(mf.imag, jnp.float32), nbin,
+                                mharm=mh)
+    Gr, Gi, sd = direct_capped_setup(jnp.asarray(x), mrp, mip, mharm=mh,
+                                     dft_precision="highest")
+    D = np.fft.rfft(x.astype(np.float64), axis=-1)
+    D[..., 0] = 0.0
+    G = D * np.conj(mf)
+    kv = ct_perm_np(nbin, mh)
+    assert sorted(kv) == list(range(NQ * mh))
+    assert np.abs(G[..., NQ * mh:]).max() == 0.0
+    gs = np.abs(G).max()
+    assert _relmax(Gr, G[..., kv].real, gs) < 2e-6
+    assert _relmax(Gi, G[..., kv].imag, gs) < 2e-6
+    assert _relmax(sd, (np.abs(D) ** 2).sum(-1)) < 1e-5
 
 
-def test_capped_full_fit_matches_uncapped(nbin=512):
-    """fit_portrait_full_batch(mharm=...) recovers the same (phi, DM)
-    as the uncapped CT path when the model is band-limited."""
-    import jax
+def test_dot_precision_map():
+    """"high" is three bf16 passes with f32 accumulation, "highest" full
+    f32; anything else (TF32 included) is refused."""
+    from pulseportraiture_tpu.ops.ct_dft import dot_precision
 
-    from pulseportraiture_tpu.fitters.portrait import \
-        fit_portrait_full_batch
+    assert dot_precision("high") == \
+        jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    assert dot_precision("HIGHEST") == jax.lax.Precision.HIGHEST
+    for bad in ("default", "tf32", "fastest"):
+        with pytest.raises(ValueError):
+            dot_precision(bad)
 
-    rng = np.random.default_rng(13)
-    B, nchan = 2, 24
+
+def test_direct_capped_high_precision_class(nbin=512):
+    """dft_precision="high" stays in the f32 accuracy class against an
+    f64 truth (the bf16 x3 split loses ~2^-21 relative)."""
+    rng, freqs, model64, mr, mi, mh = _capped_problem(seed=5, nchan=16)
+    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
+                                mharm=mh)
+    x = (np.roll(model64[None], 37, axis=-1) +
+         rng.normal(0, 0.1, (2, len(freqs), nbin))).astype(np.float32)
+    Gr, _, _ = direct_capped_setup(jnp.asarray(x), mrp, mip, mharm=mh,
+                                   dft_precision="high")
+    D = np.fft.rfft(x.astype(np.float64), axis=-1)[..., ct_perm_np(nbin, mh)]
+    Gr64 = D.real * np.asarray(mrp, np.float64) + \
+        D.imag * np.asarray(mip, np.float64)
+    Gr64[..., 0] = 0.0
+    assert _relmax(Gr, Gr64) < 3e-6
+
+
+def _shifted_problem(nbin, nchan, B, width, noise, seed):
+    from pulseportraiture_tpu.config import DCONST
+
+    rng = np.random.default_rng(seed)
     freqs = np.linspace(1100.0, 1900.0, nchan)
     xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.04) ** 2) + \
-        0.5 * np.exp(-0.5 * ((xg - 0.5) / 0.06) ** 2)
+    prof = np.exp(-0.5 * ((xg - 0.4) / width) ** 2)
     model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    model = model64.astype(np.float32)
-    # clean + cap the host model FT: harmonics below 1e-6 of peak
-    # (pure FFT rounding noise for this band-limited template) are
-    # zeroed so the cap is exact (ops.ct_dft.band_cap_model_ft)
-    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
     mf64 = np.fft.rfft(model64, axis=-1)
     mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
     assert mh is not None
     P = 0.003
-    from pulseportraiture_tpu.config import DCONST
     k = 2j * np.pi * np.arange(nbin // 2 + 1)
     phis0 = rng.uniform(-0.01, 0.01, B)
     dms0 = rng.uniform(-2e-4, 2e-4, B)
@@ -272,38 +302,64 @@ def test_capped_full_fit_matches_uncapped(nbin=512):
                                                 nu_fit ** -2)
         data[i] = np.fft.irfft(mf64 * np.exp(-k * sh[:, None]),
                                n=nbin, axis=-1)
-    data += rng.normal(0, 0.05, data.shape).astype(np.float32)
-    data = jnp.asarray(data)
-    args = (data, jnp.asarray(model), jnp.zeros((B, 5), jnp.float32),
-            jnp.full(B, P, jnp.float32), jnp.asarray(freqs, jnp.float32),
-            jnp.full((B, nchan), 0.05, jnp.float32))
+    data += rng.normal(0, noise, data.shape).astype(np.float32)
+    args = (jnp.asarray(data), jnp.asarray(model64, jnp.float32),
+            jnp.zeros((B, 5), jnp.float32), jnp.full(B, P, jnp.float32),
+            jnp.asarray(freqs, jnp.float32),
+            jnp.full((B, nchan), noise, jnp.float32))
     kw = dict(nu_fits=jnp.full((B, 3), nu_fit, jnp.float32),
               fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=20,
-              scattering=False, seed_phase=True, ct=True,
-              pallas=False, fft_matmul=True,
+              scattering=False,
               model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)))
-    r_full = fit_portrait_full_batch(*args, **kw)
-    r_cap = fit_portrait_full_batch(*args, mharm=mh, **kw)
+    return args, kw, mh, (mr, mi), freqs, P, nu_fit
+
+
+@pytest.mark.parametrize("prec", ["highest", "high"])
+def test_capped_fit_matches_full_band(prec, nbin=512):
+    """fit_portrait_full_batch(ct=True, mharm=...) — the capped direct
+    setup — recovers the same (phi, DM) as the natural-order full-band
+    fit when the model is band-limited, at either DFT precision."""
+    from pulseportraiture_tpu.fitters.portrait import \
+        fit_portrait_full_batch
+
+    args, kw, mh, _, _, _, _ = _shifted_problem(nbin, 24, 2, 0.04, 0.05,
+                                                13)
+    r_full = fit_portrait_full_batch(*args, seed_phase=True, **kw)
+    r_cap = fit_portrait_full_batch(*args, seed_phase=True, ct=True,
+                                    mharm=mh, dft_precision=prec, **kw)
     pf = np.asarray(r_full.params)
     pc = np.asarray(r_cap.params)
-    assert np.abs(pc[:, 0] - pf[:, 0]).max() < 1e-6          # phi
-    assert np.abs(pc[:, 1] - pf[:, 1]).max() < 1e-6          # DM
+    assert np.abs(pc[:, 0] - pf[:, 0]).max() < 2e-6          # phi
+    assert np.abs(pc[:, 1] - pf[:, 1]).max() < 2e-6          # DM
     assert np.allclose(np.asarray(r_cap.chi2), np.asarray(r_full.chi2),
                        rtol=1e-4)
     assert np.allclose(np.asarray(r_cap.snr), np.asarray(r_full.snr),
                        rtol=1e-3)
 
 
+def test_capped_fit_requires_cap(nbin=256):
+    """ct=True without a model-band cap (or with per-item models) is an
+    error, never a silent fallback."""
+    from pulseportraiture_tpu.fitters.portrait import \
+        fit_portrait_full_batch
+
+    args, kw, mh, _, _, _, _ = _shifted_problem(nbin, 8, 2, 0.05, 0.05, 3)
+    with pytest.raises(ValueError):
+        fit_portrait_full_batch(*args, ct=True, **kw)
+    model3 = jnp.broadcast_to(args[1], (2,) + args[1].shape)
+    kw.pop("model_ft_ri")
+    with pytest.raises(ValueError):
+        fit_portrait_full_batch(args[0], model3, *args[2:], ct=True,
+                                mharm=mh, **kw)
+
+
 def test_band_cap_model_ft_zeroes_dc_like_model_ft(nbin=512):
     """band_cap_model_ft applies the F0_FACT DC-zeroing convention
     (stats.model_ft) — callers feed raw np.fft.rfft output, and a
-    retained model-DC term silently inflates S0/chi2/scales on every
-    capped path (regression: the round-3 capped pipeline carried the
-    model's mean-flux DC into M2; chi2 came out ~19x high and the
-    per-channel reweighting could shift phi on dispersed data)."""
+    retained model-DC term silently inflates S0/chi2/scales (a model's
+    mean-flux DC in M2 once gave chi2 ~19x high)."""
     from pulseportraiture_tpu.fitters.portrait import \
         fit_portrait_full_batch
-    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
 
     rng = np.random.default_rng(7)
     B, nchan = 2, 16
@@ -324,432 +380,52 @@ def test_band_cap_model_ft_zeroes_dc_like_model_ft(nbin=512):
             jnp.asarray(freqs, jnp.float32),
             jnp.full((B, nchan), 0.1, jnp.float32))
     kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=20,
-              scattering=False, seed_phase=True, fft_matmul=True)
+              scattering=False, seed_phase=True)
     # truly independent baseline: the fit computes its own model FT
     # through stats.model_ft (DC zeroed there)
     r_ref = fit_portrait_full_batch(*args, **kw)
-    r_cap = fit_portrait_full_batch(
-        *args, model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)),
-        mharm=mh, **kw)
-    assert np.allclose(np.asarray(r_cap.chi2), np.asarray(r_ref.chi2),
-                       rtol=1e-4)
-    assert np.allclose(np.asarray(r_cap.scales),
-                       np.asarray(r_ref.scales), rtol=1e-4)
-    assert np.abs(np.asarray(r_cap.params)[:, :2] -
-                  np.asarray(r_ref.params)[:, :2]).max() < 1e-6
-
-
-@pytest.mark.parametrize("f0_fact,with_scale", [(False, False),
-                                                (True, False),
-                                                (False, True)])
-def test_direct_capped_setup_matches_ct_setup(f0_fact, with_scale,
-                                              nbin=512):
-    """direct_capped_setup (one XLA DFT-matmul over the kept band,
-    VERDICT r3 next #1) reproduces ct_setup's capped outputs — same
-    CT-permuted layout, Parseval sd, fused seed — to matmul rounding,
-    for every ingest variant the fitter dispatches."""
-    from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft,
-                                                 direct_capped_setup)
-
-    rng = np.random.default_rng(17)
-    B, nchan = 3, 24
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.05) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None and mh % 8 == 0
-    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
-                                mharm=mh)
-    w = rng.uniform(0.5, 1.5, (B, nchan)).astype(np.float32)
-    scale = None
-    if with_scale:
-        x = rng.integers(-3000, 3000, (B, nchan, nbin), dtype=np.int16)
-        scale = rng.uniform(1e-4, 5e-4, (B, nchan)).astype(np.float32)
-    else:
-        x = (model64[None] +
-             rng.normal(0, 0.1, (B, nchan, nbin))).astype(np.float32)
-    kw = dict(f0_fact=f0_fact, w=jnp.asarray(w),
-              scale=None if scale is None else jnp.asarray(scale))
-    ref = ct_setup(jnp.asarray(x), mrp, mip, mharm=mh, interpret=True,
-                   dft_precision="highest", **kw)
-    out = direct_capped_setup(jnp.asarray(x), mrp, mip, mharm=mh,
-                              dft_precision="highest", **kw)
-    names = ("Gr", "Gi", "sd", "gsr", "gsi")
-    for name, a, b in zip(names, ref, out):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape, name
-        s = np.abs(a).max() + 1e-30
-        assert np.abs(a - b).max() / s < 2e-5, name
-    # 2-D (unbatched) squeeze contract matches too
-    ref1 = ct_setup(jnp.asarray(x[0]), mrp, mip, mharm=mh,
-                    interpret=True, dft_precision="highest",
-                    f0_fact=f0_fact, w=jnp.asarray(w[0]),
-                    scale=None if scale is None else
-                    jnp.asarray(scale[0]))
-    out1 = direct_capped_setup(jnp.asarray(x[0]), mrp, mip, mharm=mh,
-                               dft_precision="highest",
-                               f0_fact=f0_fact, w=jnp.asarray(w[0]),
-                               scale=None if scale is None else
-                               jnp.asarray(scale[0]))
-    for name, a, b in zip(names, ref1, out1):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape, name
-        s = np.abs(a).max() + 1e-30
-        assert np.abs(a - b).max() / s < 2e-5, name
-
-
-@pytest.mark.parametrize("f0_fact,with_scale", [(False, False),
-                                                (True, False),
-                                                (False, True)])
-def test_pallas_direct_setup_matches_direct(f0_fact, with_scale,
-                                            nbin=512):
-    """pallas_direct_setup (the FUSED direct setup: in-kernel split-bf16
-    MXU dots, one HBM pass, Nyquist folded into the dead DC-imag slab
-    slot) reproduces direct_capped_setup's outputs to the f32 matmul
-    rounding class for every ingest variant, batched and squeezed."""
-    from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft,
-                                                 direct_capped_setup,
-                                                 pallas_direct_setup)
-
-    rng = np.random.default_rng(23)
-    B, nchan = 3, 24
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.05) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None
-    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
-                                mharm=mh)
-    w = rng.uniform(0.5, 1.5, (B, nchan)).astype(np.float32)
-    scale = None
-    if with_scale:
-        x = rng.integers(-3000, 3000, (B, nchan, nbin), dtype=np.int16)
-        scale = rng.uniform(1e-4, 5e-4, (B, nchan)).astype(np.float32)
-    else:
-        x = (model64[None] +
-             rng.normal(0, 0.1, (B, nchan, nbin))).astype(np.float32)
-    kw = dict(f0_fact=f0_fact, w=jnp.asarray(w),
-              scale=None if scale is None else jnp.asarray(scale))
-    ref = direct_capped_setup(jnp.asarray(x), mrp, mip, mharm=mh,
-                              dft_precision="highest", **kw)
-    out = pallas_direct_setup(jnp.asarray(x), mrp, mip, mharm=mh,
-                              npass=3, interpret=True, **kw)
-    names = ("Gr", "Gi", "sd", "gsr", "gsi")
-    # one absolute scale for the spectra: Gr/Gi/gsr/gsi share the data
-    # amplitude; per-output max would inflate near-zero components
-    gscale = max(np.abs(np.asarray(ref[0])).max(),
-                 np.abs(np.asarray(ref[1])).max())
-    for name, a, b in zip(names, ref, out):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape, name
-        s = np.abs(a).max() + 1e-30 if name == "sd" else gscale
-        assert np.abs(a - b).max() / s < 3e-5, name
-    # squeezed 2-D contract
-    out1 = pallas_direct_setup(jnp.asarray(x[0]), mrp, mip, mharm=mh,
-                               npass=3, interpret=True,
-                               f0_fact=f0_fact, w=jnp.asarray(w[0]),
-                               scale=None if scale is None else
-                               jnp.asarray(scale[0]))
-    for name, a, b in zip(names, ref, out1):
-        a = np.asarray(a)[0]
-        b = np.asarray(b)
-        assert a.shape == b.shape, name
-        s = np.abs(a).max() + 1e-30 if name == "sd" else gscale
-        assert np.abs(a - b).max() / s < 3e-5, name
-
-
-def test_pallas_direct_setup_npass_ladder(nbin=512):
-    """npass=3 sits in the f32 accuracy class (vs an f64 truth);
-    npass=2 (data-lo dropped) degrades by orders of magnitude but stays
-    bounded by the documented ~2^-9 relative data perturbation; npass=1
-    (single bf16) is the coarsest.  Guards the precision dispatch."""
-    from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft,
-                                                 ct_perm_np,
-                                                 pallas_direct_setup)
-
-    rng = np.random.default_rng(5)
-    B, nchan = 2, 16
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.05) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
-                                mharm=mh)
-    x = (np.roll(model64[None], 37, axis=-1) +
-         rng.normal(0, 0.1, (B, nchan, nbin))).astype(np.float32)
-    kv = ct_perm_np(nbin, mh)
-    dft = np.fft.rfft(x.astype(np.float64), axis=-1)[..., kv]
-    mr64, mi64 = np.asarray(mrp, np.float64), np.asarray(mip, np.float64)
-    Gr64 = dft.real * mr64 + dft.imag * mi64
-    Gr64[..., 0] = 0.0
-    s = np.abs(Gr64).max()
-    errs = {}
-    for npass in (1, 2, 3):
-        out = pallas_direct_setup(jnp.asarray(x), mrp, mip, mharm=mh,
-                                  npass=npass, interpret=True)
-        errs[npass] = np.abs(np.asarray(out[0], np.float64) -
-                             Gr64).max() / s
-    assert errs[3] < 3e-6, errs
-    assert errs[3] < errs[2] < errs[1], errs
-    assert errs[2] < 2e-3, errs
-
-
-def test_fit_dispatches_pallas_direct_setup(monkeypatch, nbin=512):
-    """PP_DIRECT_PALLAS=1 routes the capped fit through the fused
-    Pallas setup (interpreted off-TPU); fitted parameters match the
-    XLA direct route to f32 rounding."""
-    from pulseportraiture_tpu.fitters.portrait import \
-        fit_portrait_full_batch
-    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
-
-    rng = np.random.default_rng(11)
-    B, nchan = 2, 16
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.35) / 0.04) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.2
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None
-    data = (np.roll(model64[None], 5, axis=-1) +
-            rng.normal(0, 0.05, (B, nchan, nbin))).astype(np.float32)
-    args = (jnp.asarray(data), jnp.asarray(model64, jnp.float32),
-            jnp.zeros((B, 5), jnp.float32),
-            jnp.full(B, 0.003, jnp.float32),
-            jnp.asarray(freqs, jnp.float32),
-            jnp.full((B, nchan), 0.05, jnp.float32))
-    kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=20,
-              scattering=False, seed_phase=True, fft_matmul=True, ct=True,
-              model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)), mharm=mh,
-              dft_precision="high")
-    monkeypatch.setenv("PP_DIRECT_PALLAS", "0")
-    monkeypatch.setenv("PP_DIRECT_CAP", "1")
-    r_xla = fit_portrait_full_batch(*args, **kw)
-    monkeypatch.setenv("PP_DIRECT_PALLAS", "1")
-    # distinct trace: jit caches key on static args only, so clear
-    fit_portrait_full_batch.clear_cache()
-    r_pal = fit_portrait_full_batch(*args, **kw)
-    fit_portrait_full_batch.clear_cache()
-    assert np.abs(np.asarray(r_pal.params)[:, :2] -
-                  np.asarray(r_xla.params)[:, :2]).max() < 1e-5
-    assert np.allclose(np.asarray(r_pal.chi2), np.asarray(r_xla.chi2),
-                       rtol=1e-4)
-    # GSPMD safety gate: pallas=False (what parallel/mesh.py
-    # fit_portrait_full_sharded_direct passes — pallas_call does not
-    # partition under GSPMD) must beat even an explicit
-    # PP_DIRECT_PALLAS=1 and keep the XLA direct setup
-    from pulseportraiture_tpu.ops import ct_dft as _cd
-
-    def _boom(*a, **k):
-        raise AssertionError("pallas_direct_setup dispatched with "
-                             "pallas=False (would break GSPMD)")
-
-    monkeypatch.setattr(_cd, "pallas_direct_setup", _boom)
-    r_mesh = fit_portrait_full_batch(*args, pallas=False, **kw)
-    fit_portrait_full_batch.clear_cache()
-    assert np.abs(np.asarray(r_mesh.params)[:, :2] -
-                  np.asarray(r_xla.params)[:, :2]).max() < 1e-5
-
-
-def test_direct_cap_dispatch_heuristic():
-    """direct_cap_wins: cap present + tight + non-HIGHEST precision,
-    with PP_DIRECT_CAP as a measurement override."""
-    import os
-
-    from pulseportraiture_tpu.ops.ct_dft import direct_cap_wins
-
-    assert direct_cap_wins(8, "high")
-    assert direct_cap_wins(8, "default")
-    assert not direct_cap_wins(8, "highest")
-    assert not direct_cap_wins(16, "high")
-    assert not direct_cap_wins(None, "high")
-    os.environ["PP_DIRECT_CAP"] = "1"
-    try:
-        assert direct_cap_wins(32, "highest")
-        assert not direct_cap_wins(None, "high")
-    finally:
-        os.environ["PP_DIRECT_CAP"] = "0"
-    try:
-        assert not direct_cap_wins(8, "high")
-    finally:
-        os.environ.pop("PP_DIRECT_CAP", None)
-
-
-def test_pallas_direct_gate_respects_highest(monkeypatch, nbin=512):
-    """PP_DIRECT_CAP=1 + dft_precision='highest' must keep the XLA
-    direct setup (which supports Precision.HIGHEST), never the Pallas
-    split-bf16 kernel (HIGH accuracy class) — ADVICE r4.  Malformed
-    PP_DIRECT_NPASS must not raise at trace time and out-of-range
-    values clamp to the defined {1,2,3} ladder."""
-    from pulseportraiture_tpu.fitters.portrait import \
-        fit_portrait_full_batch
-    from pulseportraiture_tpu.ops import ct_dft as _cd
-    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
-
-    rng = np.random.default_rng(7)
-    B, nchan = 2, 8
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.35) / 0.04) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.2
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    data = (model64[None] + rng.normal(0, 0.05, (B, nchan, nbin))
-            ).astype(np.float32)
-    args = (jnp.asarray(data), jnp.asarray(model64, jnp.float32),
-            jnp.zeros((B, 5), jnp.float32),
-            jnp.full(B, 0.003, jnp.float32),
-            jnp.asarray(freqs, jnp.float32),
-            jnp.full((B, nchan), 0.05, jnp.float32))
-    kw = dict(fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=10,
-              scattering=False, seed_phase=True, fft_matmul=True, ct=True,
-              model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)), mharm=mh)
-
-    def _boom(*a, **k):
-        raise AssertionError("pallas_direct_setup dispatched at "
-                             "dft_precision='highest'")
-
-    monkeypatch.setenv("PP_DIRECT_CAP", "1")
-    monkeypatch.setenv("PP_DIRECT_PALLAS", "1")
-    monkeypatch.setattr(_cd, "pallas_direct_setup", _boom)
-    fit_portrait_full_batch.clear_cache()
-    r = fit_portrait_full_batch(*args, dft_precision="highest", **kw)
-    assert np.isfinite(np.asarray(r.params)).all()
-    fit_portrait_full_batch.clear_cache()
-
-    # malformed / out-of-range npass values: no trace-time ValueError,
-    # clamp into the ladder (npass=4 would previously trace the >=3
-    # branch silently; '' and 'true' would raise)
-    seen = []
-
-    def _spy(*a, npass=3, **k):
-        seen.append(npass)
-        from pulseportraiture_tpu.ops.ct_dft import direct_capped_setup
-        k.pop("interpret", None)
-        return direct_capped_setup(*a, **k)
-
-    monkeypatch.setattr(_cd, "pallas_direct_setup", _spy)
-    for env, want in (("true", 3), ("", 3), ("7", 3), ("0", 1), ("2", 2)):
-        monkeypatch.setenv("PP_DIRECT_NPASS", env)
-        fit_portrait_full_batch.clear_cache()
-        r = fit_portrait_full_batch(*args, dft_precision="high", **kw)
-        assert np.isfinite(np.asarray(r.params)).all()
-        assert seen[-1] == want, (env, seen[-1])
-    fit_portrait_full_batch.clear_cache()
-
-
-def test_capped_fit_direct_path_matches_uncapped(nbin=512):
-    """The full batched fit through the DIRECT capped setup
-    (dft_precision='high' dispatches it when mharm < 16,
-    fitters/portrait.py) recovers the same (phi, DM) as the uncapped
-    CT path."""
-    from pulseportraiture_tpu.fitters.portrait import \
-        fit_portrait_full_batch
-    from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft,
-                                                 direct_cap_wins)
-
-    rng = np.random.default_rng(23)
-    B, nchan = 2, 24
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.05) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    model = model64.astype(np.float32)
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None
-    if not direct_cap_wins(mh, "high"):
-        pytest.skip(f"template band too wide for the direct cap "
-                    f"(mharm={mh})")
-    P = 0.003
-    from pulseportraiture_tpu.config import DCONST
-    k = 2j * np.pi * np.arange(nbin // 2 + 1)
-    phis0 = rng.uniform(-0.01, 0.01, B)
-    dms0 = rng.uniform(-2e-4, 2e-4, B)
-    nu_fit = freqs.mean()
-    data = np.empty((B, nchan, nbin), np.float32)
-    for i in range(B):
-        sh = phis0[i] + DCONST * dms0[i] / P * (freqs ** -2 -
-                                                nu_fit ** -2)
-        data[i] = np.fft.irfft(mf64 * np.exp(-k * sh[:, None]),
-                               n=nbin, axis=-1)
-    data += rng.normal(0, 0.05, data.shape).astype(np.float32)
-    data = jnp.asarray(data)
-    args = (data, jnp.asarray(model), jnp.zeros((B, 5), jnp.float32),
-            jnp.full(B, P, jnp.float32), jnp.asarray(freqs, jnp.float32),
-            jnp.full((B, nchan), 0.05, jnp.float32))
-    kw = dict(nu_fits=jnp.full((B, 3), nu_fit, jnp.float32),
-              fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=20,
-              scattering=False, seed_phase=True, ct=True,
-              pallas=False, fft_matmul=True, dft_precision="high",
-              model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)))
-    r_full = fit_portrait_full_batch(*args, **kw)
-    r_cap = fit_portrait_full_batch(*args, mharm=mh, **kw)
-    pf = np.asarray(r_full.params)
-    pc = np.asarray(r_cap.params)
-    assert np.abs(pc[:, 0] - pf[:, 0]).max() < 2e-6          # phi
-    assert np.abs(pc[:, 1] - pf[:, 1]).max() < 2e-6          # DM
-    assert np.allclose(np.asarray(r_cap.chi2), np.asarray(r_full.chi2),
-                       rtol=1e-4)
+    for extra in ({}, dict(ct=True, mharm=mh)):
+        r_cap = fit_portrait_full_batch(
+            *args, model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)),
+            **extra, **kw)
+        assert np.allclose(np.asarray(r_cap.chi2), np.asarray(r_ref.chi2),
+                           rtol=1e-4)
+        assert np.allclose(np.asarray(r_cap.scales),
+                           np.asarray(r_ref.scales), rtol=1e-4)
+        assert np.abs(np.asarray(r_cap.params)[:, :2] -
+                      np.asarray(r_ref.params)[:, :2]).max() < 1e-6
 
 
 def test_stacked_seed_weights_match_single(nbin=512):
-    """(B, nchan, K) stacked seed weights: row 0 reproduces the legacy
-    single-w band sum bit-for-bit; row k equals the explicit einsum of
-    its weight vector with Gr/Gi — on ct_setup, pallas_direct_setup
-    and direct_capped_setup."""
-    from pulseportraiture_tpu.ops.ct_dft import (band_cap_model_ft,
-                                                 direct_capped_setup,
-                                                 pallas_direct_setup)
-    rng = np.random.default_rng(11)
-    B, nchan = 2, 16
+    """(B, nchan, K) stacked seed weights: row 0 reproduces the single-w
+    band sum; row k equals the explicit NumPy einsum of its weight
+    vector with Gr/Gi."""
+    rng, freqs, model64, mr, mi, mh = _capped_problem(seed=11, nchan=16,
+                                                      width=0.03)
+    B, nchan = 2, len(freqs)
     x = rng.normal(0, 1, (B, nchan, nbin)).astype(np.float32)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.03) ** 2)
-    m64 = prof[None, :] * np.linspace(0.5, 1.5, nchan)[:, None]
-    mf64 = np.fft.rfft(m64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None
     w1 = rng.uniform(0.5, 2.0, (B, nchan)).astype(np.float32)
     hi = (np.arange(nchan) >= nchan // 2).astype(np.float32)
     w2 = (w1 * hi[None, :]).astype(np.float32)
     wst = np.stack([w1, w2], axis=-1)
-
-    for mharm, fn in ((None, ct_setup), (mh, ct_setup),
-                      (mh, pallas_direct_setup),
-                      (mh, direct_capped_setup)):
-        mrp, mip = permute_spectrum(
-            jnp.asarray(mf64.real.astype(np.float32) if mharm is None
-                        else mr),
-            jnp.asarray(mf64.imag.astype(np.float32) if mharm is None
-                        else mi), nbin, mharm=mharm)
-        kw = dict(f0_fact=False, mharm=mharm)
-        if fn is not direct_capped_setup:
-            kw["interpret"] = True
-        if fn is ct_setup and mharm is None:
-            kw.pop("mharm")
-        Gr, Gi, sd, gsr1, gsi1 = fn(jnp.asarray(x), mrp, mip,
-                                    w=jnp.asarray(w1), **kw)
-        Gr2, Gi2, sd2, gsrS, gsiS = fn(jnp.asarray(x), mrp, mip,
-                                       w=jnp.asarray(wst), **kw)
-        assert gsrS.shape[1] == 2 and gsiS.shape[1] == 2
-        np.testing.assert_array_equal(np.asarray(Gr2), np.asarray(Gr))
-        np.testing.assert_array_equal(np.asarray(sd2), np.asarray(sd))
-        np.testing.assert_allclose(np.asarray(gsrS[:, 0]),
-                                   np.asarray(gsr1), rtol=1e-6,
-                                   atol=1e-6 * np.abs(
-                                       np.asarray(gsr1)).max())
-        ref_r = np.einsum("bc,bck->bk", w2, np.asarray(Gr))
-        ref_i = np.einsum("bc,bck->bk", w2, np.asarray(Gi))
-        scale = max(np.abs(ref_r).max(), np.abs(ref_i).max(), 1.0)
-        assert np.abs(np.asarray(gsrS[:, 1]) - ref_r).max() / scale < 1e-5
-        assert np.abs(np.asarray(gsiS[:, 1]) - ref_i).max() / scale < 1e-5
+    mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
+                                mharm=mh)
+    kw = dict(mharm=mh, dft_precision="highest")
+    Gr, Gi, sd, gsr1, gsi1 = direct_capped_setup(
+        jnp.asarray(x), mrp, mip, w=jnp.asarray(w1), **kw)
+    Gr2, Gi2, sd2, gsrS, gsiS = direct_capped_setup(
+        jnp.asarray(x), mrp, mip, w=jnp.asarray(wst), **kw)
+    assert gsrS.shape[1] == 2 and gsiS.shape[1] == 2
+    np.testing.assert_array_equal(np.asarray(Gr2), np.asarray(Gr))
+    np.testing.assert_array_equal(np.asarray(sd2), np.asarray(sd))
+    np.testing.assert_allclose(np.asarray(gsrS[:, 0]), np.asarray(gsr1),
+                               rtol=1e-6,
+                               atol=1e-6 * np.abs(np.asarray(gsr1)).max())
+    ref_r = np.einsum("bc,bck->bk", w2, np.asarray(Gr, np.float64))
+    ref_i = np.einsum("bc,bck->bk", w2, np.asarray(Gi, np.float64))
+    scale = max(np.abs(ref_r).max(), np.abs(ref_i).max(), 1.0)
+    assert np.abs(np.asarray(gsrS[:, 1]) - ref_r).max() / scale < 1e-5
+    assert np.abs(np.asarray(gsiS[:, 1]) - ref_i).max() / scale < 1e-5
 
 
 def test_seed_dm_matches_phase_seed_fit(nbin=512):
@@ -759,39 +435,11 @@ def test_seed_dm_matches_phase_seed_fit(nbin=512):
     from pulseportraiture_tpu.config import DCONST
     from pulseportraiture_tpu.fitters.portrait import (
         _seed_phi_dm, fit_portrait_full_batch)
-    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
 
-    rng = np.random.default_rng(5)
     B, nchan = 4, 64
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    xg = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((xg - 0.4) / 0.02) ** 2)
-    model64 = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
-    model = model64.astype(np.float32)
-    mf64 = np.fft.rfft(model64, axis=-1)
-    mr, mi, mh = band_cap_model_ft(mf64.real, mf64.imag, nbin)
-    assert mh is not None
-    P = 0.003
-    k = 2j * np.pi * np.arange(nbin // 2 + 1)
-    phis0 = rng.uniform(-0.01, 0.01, B)
-    dms0 = rng.uniform(-2e-4, 2e-4, B)
-    nu_fit = freqs.mean()
-    data = np.empty((B, nchan, nbin), np.float32)
-    for i in range(B):
-        sh = phis0[i] + DCONST * dms0[i] / P * (freqs ** -2 -
-                                                nu_fit ** -2)
-        data[i] = np.fft.irfft(mf64 * np.exp(-k * sh[:, None]),
-                               n=nbin, axis=-1)
-    data += rng.normal(0, 0.02, data.shape).astype(np.float32)
-    args = (jnp.asarray(data), jnp.asarray(model),
-            jnp.zeros((B, 5), jnp.float32),
-            jnp.full(B, P, jnp.float32), jnp.asarray(freqs, jnp.float32),
-            jnp.full((B, nchan), 0.02, jnp.float32))
-    kw = dict(nu_fits=jnp.full((B, 3), nu_fit, jnp.float32),
-              fit_flags=(1, 1, 0, 0, 0), log10_tau=False, max_iter=20,
-              scattering=False, ct=True, fft_matmul=True,
-              dft_precision="high",
-              model_ft_ri=(jnp.asarray(mr), jnp.asarray(mi)), mharm=mh)
+    args, kw, mh, (mr, mi), freqs, P, nu_fit = _shifted_problem(
+        nbin, nchan, B, 0.02, 0.02, 5)
+    kw.update(ct=True, dft_precision="high", mharm=mh)
     r_ph = fit_portrait_full_batch(*args, seed_phase=True, **kw)
     r_dm = fit_portrait_full_batch(*args, seed_phase=True, seed_dm=True,
                                    **kw)
@@ -802,16 +450,15 @@ def test_seed_dm_matches_phase_seed_fit(nbin=512):
     assert np.asarray(r_dm.niter).mean() <= np.asarray(r_ph.niter).mean()
 
     # the raw seed itself: run the seed math on the stacked setup sums
-    from pulseportraiture_tpu.ops.ct_dft import ct_kvec
     w = np.full((B, nchan), (0.02 * np.sqrt(nbin / 2.0)) ** -2.0,
                 np.float32)
     hi = (np.arange(nchan) >= nchan // 2).astype(np.float32)
     wst = np.stack([w, w * hi[None, :]], axis=-1)
     mrp, mip = permute_spectrum(jnp.asarray(mr), jnp.asarray(mi), nbin,
                                 mharm=mh)
-    _, _, _, gsr, gsi = ct_setup(jnp.asarray(data), mrp, mip,
-                                 f0_fact=False, interpret=True,
-                                 w=jnp.asarray(wst), mharm=mh)
+    _, _, _, gsr, gsi = direct_capped_setup(
+        args[0], mrp, mip, mharm=mh, dft_precision="highest",
+        w=jnp.asarray(wst))
     kv = jnp.asarray(ct_kvec(nbin, mharm=mh))
     M2 = np.asarray(mrp) ** 2 + np.asarray(mip) ** 2
     wcurv = jnp.asarray(w * (M2 * np.asarray(kv) ** 2).sum(-1)[None, :])

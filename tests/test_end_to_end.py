@@ -444,11 +444,9 @@ def test_mesh_campaign_matches_single_device(workspace, monkeypatch):
     """GetTOAs over a ('batch','chan') virtual mesh — int16-native
     ingest, on-device packed result (one fetch per chunk), and channel
     padding (nchan=22 on a 4-device chan axis) — yields the same TOAs
-    as the single-device campaign (VERDICT r3 weak #3: the mesh path
-    keeps the single-chip host wins)."""
+    as the single-device campaign."""
     import jax
 
-    from pulseportraiture_tpu.fitters import portrait as pfit
     from pulseportraiture_tpu.parallel import mesh as pmesh
 
     ws, par, gmodel = workspace
@@ -456,31 +454,19 @@ def test_mesh_campaign_matches_single_device(workspace, monkeypatch):
                             noise=0.3)
     assert jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", False)
-    # the fixture model's band needs mharm ~ 50+, and the CT kernel is
-    # TPU-only, so on the CPU virtual mesh the pipeline must take the
-    # GSPMD fallback (shard_fit_inputs + packed batch fit with
-    # shard-local int16 dequantize) — spy all three routes
+    # the fixture model's band needs mharm ~ 50+, above the direct cap:
+    # the pipeline must take the full-band shard_map route
     calls = []
-    real_shard = pmesh.shard_fit_inputs
-    real_packed = pfit.fit_portrait_full_batch_packed
+    real_sharded = pmesh.fit_portrait_full_sharded
 
-    def spy_shard(*a, **k):
-        calls.append("gspmd")
-        return real_shard(*a, **k)
+    def spy_sharded(*a, **k):
+        calls.append((k.get("scales") is not None, k.get("packed")))
+        return real_sharded(*a, **k)
 
-    def spy_packed(*a, **k):
-        calls.append(("packed", k.get("scales") is not None))
-        return real_packed(*a, **k)
-
-    monkeypatch.setattr(pmesh, "shard_fit_inputs", spy_shard)
-    monkeypatch.setattr(pfit, "fit_portrait_full_batch_packed",
-                        spy_packed)
+    monkeypatch.setattr(pmesh, "fit_portrait_full_sharded", spy_sharded)
     monkeypatch.setattr(
         pmesh, "fit_portrait_full_sharded_direct",
-        lambda *a, **k: pytest.fail("direct route off-TPU/uncapped"))
-    monkeypatch.setattr(
-        pmesh, "fit_portrait_full_sharded_ct",
-        lambda *a, **k: pytest.fail("CT route is TPU-gated"))
+        lambda *a, **k: pytest.fail("direct route for a wide model band"))
     try:
         gt_ref = GetTOAs(files, gmodel, quiet=True)
         gt_ref.get_TOAs(quiet=True)
@@ -489,13 +475,12 @@ def test_mesh_campaign_matches_single_device(workspace, monkeypatch):
         gt_m.get_TOAs(quiet=True, mesh=m)
     finally:
         jax.config.update("jax_enable_x64", True)
-    # the sharded fallback ran, through the packed single-fetch fit
-    # with int16 scales live (the files are i2 on disk; f32 fit dtype)
-    assert "gspmd" in calls, calls
-    assert ("packed", True) in calls, calls
+    # the sharded route ran, packed, with int16 scales live (the files
+    # are i2 on disk; f32 fit dtype)
+    assert calls and all(c == (True, True) for c in calls), calls
     assert len(gt_m.TOA_list) == len(gt_ref.TOA_list) == 4
-    # GSPMD partitions the f32 setup reductions in a different order
-    # than the single-device fit, so agreement is bounded by the f32
+    # the mesh sums the f32 setup reductions in a different order than
+    # the single-device fit, so agreement is bounded by the f32
     # convergence noise (~5e-6 rot, same scale as test_parallel's
     # helper-level tolerance) — well inside the statistical error
     for a, b in zip(gt_m.TOA_list, gt_ref.TOA_list):
@@ -512,11 +497,11 @@ def test_mesh_campaign_direct_capped_route(workspace, monkeypatch):
     """A wide-duty-cycle template caps at mharm < 16, so the mesh
     campaign must dispatch the DIRECT capped setup (one GSPMD jit over
     setup + seed + Newton; shard-local i2 dequantize; packed fetch) and
-    agree with the single-device run (VERDICT r4 item: validate the
-    production multi-chip route through the pipeline, not just the
-    fit helper)."""
+    agree with the single-device run (the multi-chip route through the
+    pipeline, not just the fit helper)."""
     import jax
 
+    from pulseportraiture_tpu.ops.ct_dft import DIRECT_MHARM_MAX
     from pulseportraiture_tpu.parallel import mesh as pmesh
 
     ws, par, _ = workspace
@@ -548,8 +533,8 @@ def test_mesh_campaign_direct_capped_route(workspace, monkeypatch):
         jax.config.update("jax_enable_x64", True)
     assert calls, "direct capped route did not dispatch"
     for mh, has_scales, packed in calls:
-        assert mh is not None and mh < 16 and has_scales and packed, \
-            calls
+        assert mh is not None and mh < DIRECT_MHARM_MAX and has_scales \
+            and packed, calls
     assert len(gt_m.TOA_list) == len(gt_ref.TOA_list) == 2
     for a, b in zip(gt_m.TOA_list, gt_ref.TOA_list):
         da_us = abs(a.MJD - b.MJD) * 1e6

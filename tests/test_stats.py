@@ -4,6 +4,7 @@ and a direct numpy transcription of the reference objective."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pulseportraiture_tpu.fitters import stats
 from pulseportraiture_tpu.config import DCONST
@@ -187,3 +188,92 @@ def test_no_scattering_specialization_matches_full_graph():
                               scattering=False)
     np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(S1), np.asarray(S2), rtol=1e-12)
+
+
+def _numpy_moments(params, setup, log10_tau=True):
+    """fitters.reference.moments on a FitSetup's spectra."""
+    from pulseportraiture_tpu.fitters import reference
+
+    G = np.asarray(setup.Gr) + 1j * np.asarray(setup.Gi)
+    return reference.moments(params, G, setup.M2, setup.w, setup.freqs,
+                             float(setup.P), float(setup.nu_DM),
+                             float(setup.nu_GM), float(setup.nu_tau),
+                             log10_tau=log10_tau)
+
+
+@pytest.mark.parametrize("scattering", [False, True])
+def test_moments_match_numpy(scattering):
+    """The XLA harmonic reductions (phase-only and the 9 scattering
+    moments) equal an independent f64 NumPy transcription."""
+    setup, _ = build_problem(nchan=8, nbin=128)
+    params = PARAMS.at[2].set(0.0)
+    if not scattering:
+        params = params.at[3].set(-np.inf)
+    got = stats._moments(params, setup, True, order=2,
+                         scattering=scattering)
+    want = _numpy_moments(np.asarray(params), setup)
+    keys = ("C", "S", "Cp", "Cpp") + (
+        ("Rf", "S1", "If1", "Rg", "S2") if scattering else ())
+    for key in keys:
+        np.testing.assert_allclose(np.asarray(got[key]), want[key],
+                                   rtol=1e-9,
+                                   atol=1e-10 * np.abs(want[key]).max(),
+                                   err_msg=key)
+
+
+def test_moments_batch_under_vmap():
+    """vmapped fgh over a batch of setups equals the per-item calls."""
+    items = [build_problem(nchan=8, nbin=64, tau=t)[0]
+             for t in (0.005, 0.01, 0.02)]
+    batch = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *[
+        s._replace(nbin=0) for s in items])
+    batch = batch._replace(nbin=items[0].nbin)
+    axes = stats.FitSetup(Gr=0, Gi=0, M2=0, w=0, freqs=0, P=0, nu_DM=0,
+                          nu_GM=0, nu_tau=0, Sd=0, S0=0, nbin=None,
+                          kvec=None, sd_chan=0)
+    fgh = jax.vmap(lambda s: stats.chi2_value_grad_hess(PARAMS, s),
+                   in_axes=(axes,))
+    fb, gb, Hb = fgh(batch)
+    for i, s in enumerate(items):
+        f1, g1, H1 = stats.chi2_value_grad_hess(PARAMS, s)
+        np.testing.assert_allclose(float(fb[i]), float(f1), rtol=1e-12)
+        np.testing.assert_allclose(np.asarray(gb[i]), np.asarray(g1),
+                                   rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(np.asarray(Hb[i]), np.asarray(H1),
+                                   rtol=1e-10, atol=1e-12)
+
+
+def _dot_precisions(jaxpr):
+    """The precision of every dot_general in a jaxpr, sub-jaxprs
+    (while/cond/pjit bodies) included."""
+    from jax.extend import core as jcore
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                if isinstance(sub, jcore.ClosedJaxpr):
+                    out += _dot_precisions(sub.jaxpr)
+                elif isinstance(sub, jcore.Jaxpr):
+                    out += _dot_precisions(sub)
+    return out
+
+
+@pytest.mark.parametrize("fit_flags,scattering", [
+    ((1, 1, 0, 0, 0), False), ((1, 1, 0, 1, 1), True),
+    ((1, 1, 1, 0, 0), False)])
+def test_fit_dots_are_full_precision(fit_flags, scattering):
+    """Every dot_general in one item's fit — trust-region Newton steps,
+    nu_zero solve, Woodbury covariance — asks for HIGHEST precision:
+    the GPU's default float32 dot is TF32."""
+    from pulseportraiture_tpu.fitters.portrait import _make_fit_one
+
+    setup, _ = build_problem(nchan=8, nbin=64)
+    fit_one = _make_fit_one(fit_flags, True, 20, scattering)
+    jaxpr = jax.make_jaxpr(fit_one)(setup, PARAMS)
+    precs = _dot_precisions(jaxpr.jaxpr)
+    assert precs, "no dot_general traced"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p == (hi, hi) for p in precs), precs
